@@ -1,0 +1,58 @@
+"""Command-line interface of the port.
+
+    python -m mlprobs_tpu_torch.pipeline.cli base <in.fasta> <out.msa>
+        [--config pnp] [-p 0] [--device cuda|cpu] [-v]
+
+`base` runs the family aligner (the c_p_np_aln role) on the card; pass
+`--device cpu` for the plain PyTorch path.  `align` and `bench` are not
+ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def _cmd_base(args) -> int:
+    from mlprobs_tpu_torch.align.aligner import align_family
+    from mlprobs_tpu_torch.core.fasta import read_fasta, write_fasta
+    from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
+
+    records = read_fasta(args.input)
+    report: dict = {}
+    t0 = time.time()
+    out = align_family(records, config=args.config, strategy=args.strategy,
+                       report=report, device=args.device)
+    dt = time.time() - t0
+    write_fasta(args.output, out.to_records())
+    if args.verbose:
+        print(f"[ELAPSED TIME] Total Running time: {dt:.3f} sec.")
+        print(json.dumps({"report": report, "stats": STATS.to_dict()},
+                         default=float))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="mlprobs_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    b = sub.add_parser("base", help="family aligner only")
+    b.add_argument("input")
+    b.add_argument("output")
+    b.add_argument("--config", default="pnp",
+                   choices=["pnp", "quickprobs"])
+    b.add_argument("-p", "--strategy", type=int, default=0,
+                   choices=[0, 1],
+                   help="0 = progressive, 1 = non-progressive")
+    b.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    b.add_argument("-v", "--verbose", action="store_true")
+    b.set_defaults(fn=_cmd_base)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,125 @@
+"""The kernel wrappers of the port: their CPU path and, on a card, the
+CUDA kernels against their plain PyTorch versions.
+
+This file imports no JAX, so it also runs on a machine with a GPU and
+no JAX:  python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
+Tolerances as in tests/test_torch_wavefront.py: sweep planes 1e-5
+relative to each row's max after aligning both to one scale, log2 totals
+2e-4, posteriors 2e-4, MWT score rtol 1e-4 / atol 1e-3, match counts
+exact, top-k values 1e-7 with lanes equal wherever the value is
+positive.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mlprobs_tpu_torch.align import pairwise as tpw  # noqa: E402
+from mlprobs_tpu_torch.ops import wavefront as twf  # noqa: E402
+from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as twk  # noqa: E402
+
+MODEL_SETS = {
+    "mix": ("hmm5", "partition", "local"),
+    "qp": ("hmm5", "partition"),
+    "hmm5": ("hmm5",),
+    "local": ("local",),
+    "partition": ("partition",),
+}
+
+
+def _batch(device, lp=128, b=5, seed=9):
+    rng = np.random.default_rng(seed)
+    lx = rng.integers(40, 100, size=b).astype(np.int32)
+    ly = rng.integers(40, 100, size=b).astype(np.int32)
+    X = np.full((b, lp), 20, np.int8)
+    Y = np.full((b, lp), 20, np.int8)
+    for k in range(b):
+        X[k, : lx[k]] = rng.integers(0, 20, lx[k])
+        Y[k, : ly[k]] = rng.integers(0, 20, ly[k])
+    return tuple(torch.from_numpy(a).to(device) for a in (X, Y, lx, ly))
+
+
+def _sweeps(fn, X, Y, lx, ly, tf, tr, models):
+    lp = X.shape[1]
+    z = torch.zeros_like(lx)
+    fwd = fn(X, Y, z, z, lx, ly, tf, models=models)
+    rev = fn(X.flip(1).contiguous(), Y.flip(1).contiguous(),
+             (lp - lx).int(), (lp - ly).int(), lx, ly, tr, models=models,
+             emit_pre=True)
+    return fwd, rev
+
+
+@pytest.mark.parametrize("mode", ["mix", "partition"])
+def test_cpu_wrappers_run_the_plain_versions(mode):
+    """On CPU tensors the wrappers are their plain versions, exactly, and
+    launch nothing."""
+    models = MODEL_SETS[mode]
+    X, Y, lx, ly = _batch("cpu", b=3)
+    tf, tr = tpw._wf_tables(mode, 0.17, "cpu")
+    twk.reset_launch_counts()
+    fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
+    fp, rp = _sweeps(twk.sweep_reference, X, Y, lx, ly, tf, tr, models)
+    for m in models:
+        assert torch.equal(fk["planes"][m], fp["planes"][m])
+        assert torch.equal(rk["log2t"][m], rp["log2t"][m])
+    out = twk.combine(fk, rk, lx, ly, models, with_matches=True, topk=16)
+    ref = twk.combine_reference(fp, rp, lx, ly, models, with_matches=True,
+                                topk=16)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert (twk.sweep.launches, twk.combine.launches) == (0, 0)
+
+
+def test_pack_tables_layout():
+    """The packed table block puts each parameter where csrc/sweep.cu
+    reads it."""
+    tf, _ = tpw._wf_tables("mix", 0.17, "cpu")
+    rows = twk.pack_tables(tf, ("hmm5", "local", "partition"), "cpu")
+    assert rows.shape == (3, twk.TAB_SIZE)
+    assert torch.equal(rows[0, :441], tf["hmm5"]["pm"].reshape(-1))
+    assert torch.equal(rows[0, 448:490], tf["hmm5"]["pins"].reshape(-1))
+    assert torch.equal(rows[0, 496:521], tf["hmm5"]["T"].reshape(-1))
+    assert torch.equal(rows[0, 528:533], tf["hmm5"]["init"])
+    assert torch.equal(rows[1, 496:505], tf["local"]["T"].reshape(-1))
+    assert rows[1, 536] == tf["local"]["c1"]
+    assert rows[1, 537] == tf["local"]["c2"]
+    assert rows[2, 538] == tf["partition"]["go"]
+    assert rows[2, 539] == tf["partition"]["ge"]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODEL_SETS))
+def test_kernels_match_plain_on_card(cuda_device, mode):
+    """sweep and combine against their plain versions on the same card
+    inputs (chip_smoke.py runs the same checks at the main path's
+    shapes)."""
+    models = MODEL_SETS[mode]
+    X, Y, lx, ly = _batch(cuda_device)
+    tf, tr = tpw._wf_tables(mode, 0.17, cuda_device)
+    fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
+    fp, rp = _sweeps(twk.sweep_reference, X, Y, lx, ly, tf, tr, models)
+    for m in models:
+        for k, p in ((fk, fp), (rk, rp)):
+            a = k["planes"][m] * torch.exp2(
+                p["scales"][m] - k["scales"][m])[:, :, None]
+            rowmax = p["planes"][m].abs().amax(dim=2).clamp(min=1e-38)
+            err = (a - p["planes"][m]).abs().amax(dim=2) / rowmax
+            assert float(err.max()) <= 1e-5
+            assert float((k["log2t"][m] - p["log2t"][m]).abs().max()) <= 2e-4
+    post, score, nb = twk.combine(fk, rk, lx, ly, models, with_matches=True)
+    post_p, score_p, nb_p = twk.combine_reference(fk, rk, lx, ly, models,
+                                                  with_matches=True)
+    assert float((post - post_p).abs().max()) <= 2e-4
+    torch.testing.assert_close(score, score_p, rtol=1e-4, atol=1e-3)
+    assert torch.equal(nb, nb_p)
+    vals, lanes, _ = twk.combine(fk, rk, lx, ly, models, topk=16)
+    vw, lw = twf.topk_skew(post, 16, 0.01)
+    assert float((vals - vw).abs().max()) <= 1e-7
+    assert torch.equal(lanes[vw > 0], lw[vw > 0])
