@@ -8,13 +8,17 @@ Phases (any failure exits non-zero):
  3. kernels against their plain PyTorch versions on the card, for every
     model set, at Lp=512/B=64 and Lp=128/B=3: sweep planes, scales and
     totals; dense combine; the fused top-k against `topk_skew` of the
-    kernel's own dense plane; MWT match counts.  Then each kernel's time
-    at the main path's shapes beside its plain version's and its bound;
+    kernel's own dense plane; MWT match counts.  The sweep's scales must
+    equal the plain version's in every row.  Then each kernel's time at
+    the main path's shapes beside its plain version's and its bound, and
+    the sweep's time for each single-model set;
  4. the main path: a seeded twilight-zone family (N=48, 330-470
     residues) through `align_family(config="pnp")` on the card, with
     the kernels' launch counts, per-stage wall clock and peak memory;
-    then the consistency tensor rebuilt with the plain versions on the
-    card must agree with the kernels' tensor.
+    then one torch.profiler window around the family's posterior tensor
+    (the five device operations with the most time, the device's idle
+    share), and the consistency tensor rebuilt with the plain versions
+    on the card must agree with the kernels' tensor.
 Before the last line come the kernels' JSON record and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.
 """
@@ -54,6 +58,55 @@ MODEL_SETS = {
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def profiled(fn):
+    """(fn(), record): one torch.profiler window (CPU + CUDA) around fn;
+    the record has the window's wall time, the five device operations
+    with the most time and the device's idle share (1 - the union of the
+    device intervals over the window).  Without device events the device
+    numbers read "not measured" and the record carries the CUDA-event
+    time of the window instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rec = {"window_ms": wall_us / 1e3,
+           "cuda_event_ms": start.elapsed_time(end)}
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        rec["top_device_ops"] = rec["device_idle_share"] = "not measured"
+        return out, rec
+    per_name: dict = {}
+    for e in dev:
+        per_name[e.name] = (per_name.get(e.name, 0.0)
+                            + e.time_range.elapsed_us())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    rec["top_device_ops"] = [{"name": n[:80], "ms": us / 1e3}
+                             for n, us in top]
+    rec["device_busy_ms"] = busy / 1e3
+    rec["device_idle_share"] = max(0.0, 1.0 - busy / wall_us)
+    return out, rec
 
 
 def main() -> None:
@@ -173,7 +226,9 @@ def main() -> None:
                    "topk_err": e_topk, "topk_lanes_equal": lanes_ok,
                    "topk_score_equal": bool(torch.equal(sc_t, sc_k))}
             print("[check] " + json.dumps(rec), flush=True)
+            # the sweep keeps the plain version's scales bit for bit
             ok = (e_plane <= TOL["plane"] and e_l2t <= TOL["l2t"]
+                  and scale_rows == 0
                   and e_post <= TOL["post"] and pad_nonzero == 0
                   and score_ok and nb_ok and e_topk <= TOL["topk"]
                   and lanes_ok and rec["topk_score_equal"])
@@ -231,9 +286,15 @@ def main() -> None:
 
     bounds = {"sweep": bound(sweep_bytes, sweep_ops),
               "combine": bound(comb_bytes, comb_ops)}
-    print(f"[timing] mix Lp={lp} B={b}: " + json.dumps(
-        {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0]}
-         for k, v in timing.items()}), flush=True)
+    # the sweep of each single-model set on the same batch: which kind
+    # sets the pace of the mix launch
+    single = {m: cuda_ms(lambda m=m: wk.sweep(X, Y, zero, zero, LX, LY,
+                                              tabs_f, models=(m,)), 7)
+              for m in models}
+    rec = {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0]}
+           for k, v in timing.items()}
+    rec["sweep_single_ms"] = single
+    print(f"[timing] mix Lp={lp} B={b}: " + json.dumps(rec), flush=True)
     del fk, rk
 
     # ---- 4. the main path --------------------------------------------------
@@ -277,7 +338,10 @@ def main() -> None:
     seqs = [degap(encode(s)) for _, s in records]
     stats = aligner.family_viterbi_stats(seqs, device=dev)
     leave = aligner.mp.adaptive_leave_prob(stats.avg_pid)
-    t_k = pairwise.device_posterior_tensor(seqs, "mix", leave, device=dev)
+    t_k, prof = profiled(lambda: pairwise.device_posterior_tensor(
+        seqs, "mix", leave, device=dev))
+    print("[profile] device_posterior_tensor of the smoke family: "
+          + json.dumps(prof), flush=True)
     saved = wk.sweep, wk.combine
     wk.sweep, wk.combine = wk.sweep_reference, wk.combine_reference
     try:

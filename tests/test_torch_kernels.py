@@ -123,3 +123,41 @@ def test_kernels_match_plain_on_card(cuda_device, mode):
     vw, lw = twf.topk_skew(post, 16, 0.01)
     assert float((vals - vw).abs().max()) <= 1e-7
     assert torch.equal(lanes[vw > 0], lw[vw > 0])
+
+
+def _edge_batch(device, lp, b, seed):
+    """b pairs padded to lp, the first with x of full length, the last
+    with y of full length, the rest of random lengths in [lp/2, lp]."""
+    rng = np.random.default_rng(seed)
+    lx = rng.integers(max(1, lp // 2), lp + 1, size=b).astype(np.int32)
+    ly = rng.integers(max(1, lp // 2), lp + 1, size=b).astype(np.int32)
+    lx[0] = ly[-1] = lp
+    X = np.full((b, lp), 20, np.int8)
+    Y = np.full((b, lp), 20, np.int8)
+    for k in range(b):
+        X[k, : lx[k]] = rng.integers(0, 20, lx[k])
+        Y[k, : ly[k]] = rng.integers(0, 20, ly[k])
+    return tuple(torch.from_numpy(a).to(device) for a in (X, Y, lx, ly))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("lp", [1, 31, 32, 33, 127, 129, 511, 513, 1100])
+@pytest.mark.parametrize("mode", list(MODEL_SETS))
+def test_sweep_lane_edges_on_card(cuda_device, mode, lp, b):
+    """The sweep against its plain version at the edges of the kernel's
+    lane mapping (a warp's and a block's lanes, past 1,024 lanes), both
+    passes: scales equal, planes within 1e-5 of their row's max, log2
+    totals within 2e-4."""
+    models = MODEL_SETS[mode]
+    X, Y, lx, ly = _edge_batch(cuda_device, lp, b, seed=lp * 7 + b)
+    tf, tr = tpw._wf_tables(mode, 0.17, cuda_device)
+    fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
+    fp, rp = _sweeps(twk.sweep_reference, X, Y, lx, ly, tf, tr, models)
+    for m in models:
+        for k, p in ((fk, fp), (rk, rp)):
+            assert torch.equal(k["scales"][m], p["scales"][m])
+            rowmax = p["planes"][m].abs().amax(dim=2).clamp(min=1e-38)
+            err = (k["planes"][m] - p["planes"][m]).abs().amax(dim=2)
+            assert float((err / rowmax).max()) <= 1e-5
+            assert float((k["log2t"][m] - p["log2t"][m]).abs().max()) <= 2e-4
