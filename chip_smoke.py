@@ -60,6 +60,29 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def ptxas_summary(log: str) -> list:
+    """One line per kernel instance of an `nvcc -Xptxas -v` log: its
+    (demangled) name, registers and spill bytes; error lines as they are."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "error" in line:
+            out.append(line.strip())
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+            try:
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True, timeout=10).stdout.strip()
+            except (OSError, subprocess.SubprocessError):
+                pass
+            name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            out.append(f"{name}: {regs} registers; {spill}")
+    return out
+
+
 def profiled(fn):
     """(fn(), record): one torch.profiler window (CPU + CUDA) around fn;
     the record has the window's wall time, the five device operations
@@ -140,9 +163,8 @@ def main() -> None:
     info = build.build_all()
     print(f"[build] sweep+combine nvcc in {info['seconds']:.2f} s", flush=True)
     for name, log in info["logs"].items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"[build:{name}] {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"[build:{name}] {line}")
     wk.reset_launch_counts()
 
     # ---- 3. kernels against their plain versions -------------------------
@@ -260,6 +282,18 @@ def main() -> None:
     zero = torch.zeros((b,), dtype=torch.int32, device=dev)
     fk, rk = sweeps(wk.sweep, X, Y, LX, LY, tabs_f, tabs_r, models)
     D, W, nm = 2 * lp + 1, lp + 1, len(models)
+    # combine in each of its modes, and dense again on the family's last
+    # batch (B=104: 1,128 pairs = 4 x 256 + 104)
+    b_last = 104
+    X2, Y2, LX2, LY2 = (t[:b_last].contiguous() for t in (X, Y, LX, LY))
+    fk2, rk2 = sweeps(wk.sweep, X2, Y2, LX2, LY2, tabs_f, tabs_r, models)
+    comb_modes = {
+        # name: (fwd, rev, lx, ly, keyword arguments)
+        "combine": (fk, rk, LX, LY, {}),
+        "combine_matches": (fk, rk, LX, LY, {"with_matches": True}),
+        "combine_topk16": (fk, rk, LX, LY, {"topk": 16, "cutoff": 0.01}),
+        "combine_b104": (fk2, rk2, LX2, LY2, {}),
+    }
     timing = {
         "sweep": (
             cuda_ms(lambda: wk.sweep(X, Y, zero, zero, LX, LY, tabs_f,
@@ -267,25 +301,37 @@ def main() -> None:
             cuda_ms(lambda: wk.sweep_reference(X, Y, zero, zero, LX, LY,
                                                tabs_f, models=models), 3),
         ),
-        "combine": (
-            cuda_ms(lambda: wk.combine(fk, rk, LX, LY, models), 7),
-            cuda_ms(lambda: wk.combine_reference(fk, rk, LX, LY, models),
-                    3),
-        ),
     }
-    cells = D * W * b
-    sweep_bytes = 2 * b * lp + 16 * b + nm * (D * b * W + D * b + b) * 4
-    sweep_ops = sum(SWEEP_OPS[m] for m in models) * cells
-    comb_bytes = (2 * nm * (D * b * W + D * b + b) * 4 + 8 * b
-                  + D * b * W * 4 + 4 * b)
-    comb_ops = (COMBINE_OPS_PER_MODEL * nm + COMBINE_OPS_CELL) * cells
+
+    def time_combine(f_, r_, lx_, ly_, kw):
+        return (
+            cuda_ms(lambda: wk.combine(f_, r_, lx_, ly_, models, **kw), 7),
+            cuda_ms(lambda: wk.combine_reference(f_, r_, lx_, ly_, models,
+                                                 **kw), 3),
+        )
+
+    for name, args in comb_modes.items():
+        timing[name] = time_combine(*args)
 
     def bound(nbytes, ops):
         tb, to = nbytes / CARD_BYTES * 1e3, ops / CARD_F32_OPS * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    bounds = {"sweep": bound(sweep_bytes, sweep_ops),
-              "combine": bound(comb_bytes, comb_ops)}
+    def comb_bound(bb, with_matches=False, topk=0, cutoff=None):
+        # each input read once (2 x nm planes, scales and totals, lx, ly),
+        # each output written once: the dense plane, or k values and k
+        # lanes a diagonal; the score, and the match counts when asked
+        out = D * bb * (topk * 8 if topk else W * 4)
+        nbytes = (2 * nm * (D * bb * W + D * bb + bb) * 4 + 8 * bb + out
+                  + 4 * bb * (2 if with_matches else 1))
+        ops = (COMBINE_OPS_PER_MODEL * nm + COMBINE_OPS_CELL) * D * W * bb
+        return bound(nbytes, ops)
+
+    sweep_bytes = 2 * b * lp + 16 * b + nm * (D * b * W + D * b + b) * 4
+    sweep_ops = sum(SWEEP_OPS[m] for m in models) * D * W * b
+    bounds = {"sweep": bound(sweep_bytes, sweep_ops)}
+    for name, args in comb_modes.items():
+        bounds[name] = comb_bound(args[2].shape[0], **args[4])
     # the sweep of each single-model set on the same batch: which kind
     # sets the pace of the mix launch
     single = {m: cuda_ms(lambda m=m: wk.sweep(X, Y, zero, zero, LX, LY,
@@ -294,8 +340,9 @@ def main() -> None:
     rec = {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0]}
            for k, v in timing.items()}
     rec["sweep_single_ms"] = single
-    print(f"[timing] mix Lp={lp} B={b}: " + json.dumps(rec), flush=True)
-    del fk, rk
+    print(f"[timing] mix Lp={lp} B={b} (combine_b104: B={b_last}): "
+          + json.dumps(rec), flush=True)
+    del fk, rk, fk2, rk2, comb_modes, args, X2, Y2, LX2, LY2
 
     # ---- 4. the main path --------------------------------------------------
     records = synthetic_family(48, 330, 470, sub=0.5, indel=0.1, seed=48)

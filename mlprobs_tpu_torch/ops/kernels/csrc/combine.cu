@@ -48,7 +48,16 @@ __device__ __forceinline__ float pow2i(float e) {
   return __int_as_float((ei + 127) << 23);
 }
 
-template <int LPT>
+// the diagonal's split power-of-two factors of one model: pa, pb, c
+__device__ __forceinline__ float4 factors(float sf, float sr, float l2t) {
+  const float t = sf + sr + l2t;
+  const float ti = floorf(t);
+  const float a = floorf(-ti * 0.5f);
+  const float b2 = -ti - a;
+  return make_float4(pow2i(a), pow2i(b2), exp2f(-(t - ti)), 0.f);
+}
+
+template <int NM, int LPT>
 __global__ void combine_kernel(const float* __restrict__ fwd,
                                const float* __restrict__ fsc,
                                const float* __restrict__ fl2t,
@@ -56,7 +65,7 @@ __global__ void combine_kernel(const float* __restrict__ fwd,
                                const float* __restrict__ rsc,
                                const float* __restrict__ rl2t,
                                const int32_t* __restrict__ lxs,
-                               const int32_t* __restrict__ lys, int nm,
+                               const int32_t* __restrict__ lys,
                                int k0, int k1, int k2, int B, int Lp,
                                int with_matches, int topk, float cutoff,
                                float* __restrict__ post,
@@ -77,14 +86,25 @@ __global__ void combine_kernel(const float* __restrict__ fwd,
   float* pub = smem;                      // [2][2][W]: s, n
   float* redv = smem + 4 * W;             // [2][32]
   int* redl = (int*)(redv + 64);          // [2][32]
+  float4* fac = (float4*)(smem + 4 * W + 128);  // [2][NM]: pa, pb, c
 
-  float l2t[3];
-  int kinds[3] = {k0, k1, k2};
-  for (int m = 0; m < nm; ++m) {
+  // thread m < NM keeps model m's total and computes its factors one
+  // diagonal ahead, from scales it loaded one diagonal before that
+  float l2t = 0.f, sfn = 0.f, srn = 0.f;
+  const int rr0 = 2 * Lp + 2;
+  if (tid < NM) {
+    const int m = tid;
+    const int kind = m == 0 ? k0 : (m == 1 ? k1 : k2);
     const float f = fl2t[(size_t)m * B + b];
-    l2t[m] = kinds[m] == PARTITION ? f
-                                   : 0.5f * (f + rl2t[(size_t)m * B + b]);
+    l2t = kind == PARTITION ? f : 0.5f * (f + rl2t[(size_t)m * B + b]);
+    fac[m] = factors(fsc[(size_t)m * D * B + b],
+                     rr0 < D ? rsc[((size_t)m * D + rr0) * B + b] : 0.f, l2t);
+    if (D > 1) {
+      sfn = fsc[((size_t)m * D + 1) * B + b];
+      srn = rr0 - 1 < D ? rsc[((size_t)m * D + rr0 - 1) * B + b] : 0.f;
+    }
   }
+  __syncthreads();
 
   float s1[LPT], s1s[LPT], s2s[LPT], n1[LPT], n1s[LPT], n2s[LPT];
 #pragma unroll
@@ -96,18 +116,21 @@ __global__ void combine_kernel(const float* __restrict__ fwd,
   for (int d = 0; d < D; ++d) {
     const int par = d & 1;
     const int rr = 2 * Lp + 2 - d;  // reverse row (>= 2 > 0 always)
+    if (tid < NM && d + 1 < D) {
+      const int m = tid;
+      fac[(par ^ 1) * NM + m] = factors(sfn, srn, l2t);
+      if (d + 2 < D) {
+        sfn = fsc[((size_t)m * D + d + 2) * B + b];
+        srn = rr - 2 < D ? rsc[((size_t)m * D + rr - 2) * B + b] : 0.f;
+      }
+    }
     float prow[LPT];
 #pragma unroll
     for (int k = 0; k < LPT; ++k) prow[k] = 0.f;
-    for (int m = 0; m < nm; ++m) {
-      const float sf = fsc[((size_t)m * D + d) * B + b];
-      const float sr = rr < D ? rsc[((size_t)m * D + rr) * B + b] : 0.f;
-      const float t = sf + sr + l2t[m];
-      const float ti = floorf(t);
-      const float a = floorf(-ti * 0.5f);
-      const float b2 = -ti - a;
-      const float c = exp2f(-(t - ti));
-      const float pa = pow2i(a), pb = pow2i(b2);
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      const float4 fc = fac[par * NM + m];
+      const float pa = fc.x, pb = fc.y, c = fc.z;
       const float* frow = fwd + (((size_t)m * D + d) * B + b) * W;
       const float* rrow =
           rr < D ? rev + (((size_t)m * D + rr) * B + b) * W : nullptr;
@@ -126,7 +149,7 @@ __global__ void combine_kernel(const float* __restrict__ fwd,
     }
 #pragma unroll
     for (int k = 0; k < LPT; ++k)
-      prow[k] = nm == 1 ? sqrtf(prow[k]) : sqrtf(prow[k] / (float)nm);
+      prow[k] = NM == 1 ? sqrtf(prow[k]) : sqrtf(prow[k] / (float)NM);
 
     if (topk == 0) {
       float* orow = post + ((size_t)d * B + b) * W;
@@ -245,7 +268,7 @@ __global__ void combine_kernel(const float* __restrict__ fwd,
   }
 }
 
-template <int LPT>
+template <int NM, int LPT>
 cudaError_t launch(int nt, const float* fwd, const float* fsc,
                    const float* fl2t, const float* rev, const float* rsc,
                    const float* rl2t, const int32_t* lx, const int32_t* ly,
@@ -254,15 +277,15 @@ cudaError_t launch(int nt, const float* fwd, const float* fsc,
                    float* vals, int32_t* lanes, float* score, float* nb,
                    cudaStream_t stream) {
   const int W = Lp + 1;
-  const size_t smem = (4 * (size_t)W + 128) * sizeof(float);
+  const size_t smem = (4 * (size_t)W + 128 + 8 * NM) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        combine_kernel<LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        combine_kernel<NM, LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  combine_kernel<LPT><<<B, nt, smem, stream>>>(
-      fwd, fsc, fl2t, rev, rsc, rl2t, lx, ly, nm, k0, k1, k2, B, Lp,
+  combine_kernel<NM, LPT><<<B, nt, smem, stream>>>(
+      fwd, fsc, fl2t, rev, rsc, rl2t, lx, ly, k0, k1, k2, B, Lp,
       with_matches, topk, cutoff, post, vals, lanes, score, nb);
   return cudaGetLastError();
 }
@@ -289,12 +312,21 @@ extern "C" int combine_launch(const void* fwd, const void* fsc,
       with_matches, topk, cutoff, (float*)post, (float*)vals,             \
       (int32_t*)lanes, (float*)score, (float*)nb, (cudaStream_t)stream
   cudaError_t err;
-  switch (lpt) {
-    case 1: err = launch<1>(ARGS); break;
-    case 2: err = launch<2>(ARGS); break;
-    case 4: err = launch<4>(ARGS); break;
-    default: err = launch<8>(ARGS); break;
+#define LPTS(NM)                                          \
+  switch (lpt) {                                          \
+    case 1: err = launch<NM, 1>(ARGS); break;             \
+    case 2: err = launch<NM, 2>(ARGS); break;             \
+    case 4: err = launch<NM, 4>(ARGS); break;             \
+    default: err = launch<NM, 8>(ARGS); break;            \
   }
+  if (nm == 1) {
+    LPTS(1)
+  } else if (nm == 2) {
+    LPTS(2)
+  } else {
+    LPTS(3)
+  }
+#undef LPTS
 #undef ARGS
   return (int)err;
 }
