@@ -9,38 +9,77 @@
 // the MWT path, and either the dense (D, B, W) plane or per diagonal the
 // top k values >= cutoff with their lanes.
 //
-// Per model, p = f * r * 2^-(sf + sr + l2t) as the Pallas kernel's split
-// power-of-two multiply: the exponent is split in two halves applied to
-// f and to r before the product, so tiny x huge cells do not under- or
-// overflow, and the only inexact factor is one exp2 of the fractional
-// part per row.  r is the reverse plane's row 2Lp+2-d at lane Lp+1-j
-// (rows and lanes out of range read as zero).  Totals: hmm5 and local
-// average the forward and reverse totals, partition takes the forward
-// one.  The models combine by RMS, sqrt(sum p^2 / n).
+// Arithmetic.  Per model, p = (f * pa) * (r * pb) * c: the exponent
+// sf + sr + l2t is split in two powers of two applied to f and to r
+// before the product, so tiny x huge cells neither under- nor overflow,
+// and the only inexact factor is c, one exp2 of the fractional part per
+// diagonal.  r is the reverse plane's row 2Lp+2-d at lane Lp+1-j.  Totals:
+// hmm5 and local average the forward and reverse totals, partition takes
+// the forward one.  p is clamped to 1, the models combine by RMS, and the
+// MWT step breaks ties diag >= left >= up.  Built with --fmad=false, so
+// every product and sum rounds as the plain version's.
 //
-// Layout: one block per pair, one thread per lane (a strided loop over
-// LPT lanes when W > 1024), a loop over diagonals inside the block.  The
-// MWT DP carries s and n of diagonals d-1 and d-2 in registers and reads
-// the j-1 neighbour from a double-buffered shared row (one barrier per
-// diagonal).  The top-k runs k rounds of a block-wide (value, lane)
-// arg-max, the lowest lane winning ties as in the JAX package's top_k,
-// one barrier per round, and stops at the first round with nothing left
-// >= cutoff.
+// What bounds it on the H100: bytes.  Each cell of the 2 * nm input planes
+// is read once and the dense plane written once (3.77 GB, 1.13 ms at mix,
+// Lp = 512, B = 256), against a few dozen f32 operations a cell.  But a
+// pair is a chain of 2Lp+1 diagonals, each needing the MWT values of the
+// one before, so a diagonal whose loads are issued and consumed in turn
+// pays a DRAM round trip (or several) on that chain.  The design takes
+// the loads off the chain.
 //
-// Bound on the H100: bytes.  Every cell of the 2 * nm input planes is
-// read once and the dense plane written once, against a few dozen f32
-// operations per cell.  The planes are read row by row with consecutive
-// lanes on consecutive addresses (the reverse row in descending order);
-// the posterior never leaves registers on the top-k path.  Built with
-// --fmad=false so that each multiply and add rounds as the plain version
-// does.
+// Layout.  One block per pair; each thread owns LPT contiguous lanes
+// (2 up to Lp = 1,024: 8 warps a block at Lp = 512, 2 blocks an SM; 8 up
+// to 4,096; 16 up to 8,191).  Lane 0 is outside the grid (its posterior
+// is 0 and its MWT value a boundary 0), so no thread owns it.
+//
+// The ring.  A ring of S <= 8 diagonals in shared memory holds each
+// diagonal's nm forward rows, nm reversed rows and 2 * nm scales, filled
+// S - 1 diagonals ahead with cp.async (one commit group a diagonal).  A
+// thread reads its lanes of every row as one float2 or float4s.  The
+// reversed row is stored reversed (reverse lane Lp+1-j at the index of
+// lane j), so both rows read alike.  The diagonal's split factors (pa, pb, c) are computed
+// once, by one thread a model, one diagonal ahead, from the scales in the
+// ring, and read from shared memory.  S is chosen at launch from W so that
+// two blocks fit an SM (one if it must); where even one block cannot
+// hold 3 stages (nm >= 2 and very long pairs), the block reads its lanes
+// straight from device memory instead, with the scales prefetched one
+// diagonal ahead in registers.
+//
+// Alignment.  Rows are W = Lp + 1 floats long, so a row starts on a
+// 4-byte boundary only.  Every copy is a 4-byte cp.async: no copy assumes
+// more alignment than 4 bytes, none reads outside its row, and the copy
+// places each float at an aligned index of the ring, where the vector
+// reads need it.  A warp's copies cover 32 consecutive floats of a row.
+//
+// One barrier a diagonal.  At diagonal d every thread waits for its own
+// copies of diagonal d + 1, then the block meets once.  That barrier
+// publishes the ring stages of d and d + 1, the factors of d, the MWT
+// values that cross a warp edge and the top-k candidates of d - 1, and it
+// frees the stage of d - 1 for refilling.  The MWT DP carries s (and n)
+// of diagonals d-1 and d-2 in registers; the (., j-1) neighbour is a
+// register inside a thread, a shuffle between threads and one shared slot
+// per warp edge between warps.  The dense row goes out through a per-warp
+// staging row, so each store covers 32 consecutive floats.
+//
+// Top-k without a barrier a round.  Each warp compacts its lanes >= cutoff
+// into its part of a shared candidate list (ballot and popc; the list has
+// room for every lane).  After the next diagonal's barrier each warp ranks
+// its own candidates against all of them -- the rank is the number that
+// are larger, or equal at a lower lane, which is the order of the JAX
+// package's top_k -- and writes the first k ranks; warp 0 zeroes the empty
+// slots.  No barrier is added: the ranking of d - 1 rides in diagonal d.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 #include <stdint.h>
 
 namespace {
 
 constexpr int PARTITION = 2;
+constexpr int MAX_WARPS = 32;
+constexpr int MAX_STAGES = 8;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float pow2i(float e) {
   // exact 2**e for integer-valued e, clamped to the normal range
@@ -57,237 +96,429 @@ __device__ __forceinline__ float4 factors(float sf, float sr, float l2t) {
   return make_float4(pow2i(a), pow2i(b2), exp2f(-(t - ti)), 0.f);
 }
 
-template <int NM, int LPT>
-__global__ void combine_kernel(const float* __restrict__ fwd,
-                               const float* __restrict__ fsc,
-                               const float* __restrict__ fl2t,
-                               const float* __restrict__ rev,
-                               const float* __restrict__ rsc,
-                               const float* __restrict__ rl2t,
-                               const int32_t* __restrict__ lxs,
-                               const int32_t* __restrict__ lys,
-                               int k0, int k1, int k2, int B, int Lp,
-                               int with_matches, int topk, float cutoff,
-                               float* __restrict__ post,
-                               float* __restrict__ vals,
-                               int32_t* __restrict__ lanes,
-                               float* __restrict__ score,
-                               float* __restrict__ nbs) {
-  extern __shared__ float smem[];
-  const int W = Lp + 1;
-  const int D = 2 * Lp + 1;
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, wl = tid & 31, nwarps = nt >> 5;
-  const int b = blockIdx.x;
-  const int lx = lxs[b], ly = lys[b];
-  const int dterm = lx + ly;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
 
-  float* pub = smem;                      // [2][2][W]: s, n
-  float* redv = smem + 4 * W;             // [2][32]
-  int* redl = (int*)(redv + 64);          // [2][32]
-  float4* fac = (float4*)(smem + 4 * W + 128);  // [2][NM]: pa, pb, c
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  // thread m < NM keeps model m's total and computes its factors one
-  // diagonal ahead, from scales it loaded one diagonal before that
-  float l2t = 0.f, sfn = 0.f, srn = 0.f;
-  const int rr0 = 2 * Lp + 2;
-  if (tid < NM) {
-    const int m = tid;
-    const int kind = m == 0 ? k0 : (m == 1 ? k1 : k2);
-    const float f = fl2t[(size_t)m * B + b];
-    l2t = kind == PARTITION ? f : 0.5f * (f + rl2t[(size_t)m * B + b]);
-    fac[m] = factors(fsc[(size_t)m * D * B + b],
-                     rr0 < D ? rsc[((size_t)m * D + rr0) * B + b] : 0.f, l2t);
-    if (D > 1) {
-      sfn = fsc[((size_t)m * D + 1) * B + b];
-      srn = rr0 - 1 < D ? rsc[((size_t)m * D + rr0 - 1) * B + b] : 0.f;
-    }
-  }
-  __syncthreads();
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  float s1[LPT], s1s[LPT], s2s[LPT], n1[LPT], n1s[LPT], n2s[LPT];
-#pragma unroll
-  for (int k = 0; k < LPT; ++k)
-    s1[k] = s1s[k] = s2s[k] = n1[k] = n1s[k] = n2s[k] = 0.f;
-  float sc = 0.f, nbv = 0.f;
-  int round = 0;
-
-  for (int d = 0; d < D; ++d) {
-    const int par = d & 1;
-    const int rr = 2 * Lp + 2 - d;  // reverse row (>= 2 > 0 always)
-    if (tid < NM && d + 1 < D) {
-      const int m = tid;
-      fac[(par ^ 1) * NM + m] = factors(sfn, srn, l2t);
-      if (d + 2 < D) {
-        sfn = fsc[((size_t)m * D + d + 2) * B + b];
-        srn = rr - 2 < D ? rsc[((size_t)m * D + rr - 2) * B + b] : 0.f;
-      }
-    }
-    float prow[LPT];
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) prow[k] = 0.f;
-#pragma unroll
-    for (int m = 0; m < NM; ++m) {
-      const float4 fc = fac[par * NM + m];
-      const float pa = fc.x, pb = fc.y, c = fc.z;
-      const float* frow = fwd + (((size_t)m * D + d) * B + b) * W;
-      const float* rrow =
-          rr < D ? rev + (((size_t)m * D + rr) * B + b) * W : nullptr;
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        const int j = tid + k * nt;
-        if (j >= W) continue;
-        const float f = frow[j];
-        const int jr = Lp + 1 - j;
-        const float r = (rrow != nullptr && jr < W) ? rrow[jr] : 0.f;
-        float p = (f * pa) * (r * pb) * c;
-        p = fminf(p, 1.f);
-        p = (f > 0.f && r > 0.f) ? p : 0.f;
-        prow[k] = m == 0 ? p * p : prow[k] + p * p;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < LPT; ++k)
-      prow[k] = NM == 1 ? sqrtf(prow[k]) : sqrtf(prow[k] / (float)NM);
-
-    if (topk == 0) {
-      float* orow = post + ((size_t)d * B + b) * W;
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        const int j = tid + k * nt;
-        if (j < W) orow[j] = prow[k];
-      }
-    } else {
-      float rem[LPT];
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        const int j = tid + k * nt;
-        rem[k] = (j < W && prow[k] >= cutoff) ? prow[k] : 0.f;
-      }
-      float* vrow = vals + ((size_t)d * B + b) * topk;
-      int32_t* lrow = lanes + ((size_t)d * B + b) * topk;
-      for (int t = 0; t < topk; ++t) {
-        // thread-local best: largest value, lowest lane among ties
-        float bv = 0.f;
-        int bl = 0x7fffffff;
-#pragma unroll
-        for (int k = 0; k < LPT; ++k) {
-          const int j = tid + k * nt;
-          if (rem[k] > bv || (rem[k] == bv && rem[k] > 0.f && j < bl)) {
-            bv = rem[k];
-            bl = j;
-          }
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-          const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
-          if (ov > bv || (ov == bv && ol < bl)) {
-            bv = ov;
-            bl = ol;
-          }
-        }
-        const int rp = round & 1;
-        ++round;
-        if (wl == 0) {
-          redv[rp * 32 + warp] = bv;
-          redl[rp * 32 + warp] = bl;
-        }
-        __syncthreads();
-        bv = 0.f;
-        bl = 0x7fffffff;
-        for (int w = 0; w < nwarps; ++w) {
-          const float ov = redv[rp * 32 + w];
-          const int ol = redl[rp * 32 + w];
-          if (ov > bv || (ov == bv && ol < bl)) {
-            bv = ov;
-            bl = ol;
-          }
-        }
-        if (!(bv > 0.f)) {
-          // nothing left >= cutoff: the remaining slots are empty
-          for (int q = t + tid; q < topk; q += nt) {
-            vrow[q] = 0.f;
-            lrow[q] = 0;
-          }
-          break;
-        }
-        if (tid == 0) {
-          vrow[t] = bv;
-          lrow[t] = bl;
-        }
-#pragma unroll
-        for (int k = 0; k < LPT; ++k)
-          if (tid + k * nt == bl) rem[k] = 0.f;
-      }
-    }
-
-    // MWT accuracy DP (tie order diag >= left >= up)
-    float* pb = pub + par * 2 * W;
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const int j = tid + k * nt;
-      if (j >= W) continue;
-      const int i = d - j;
-      const float pd = prow[k] + s2s[k];
-      const float left = s1s[k];
-      const float up = s1[k];
-      const bool take_d = pd >= left && pd >= up;
-      const bool take_l = left >= up;
-      const bool boundary = i <= 0 || j == 0;
-      float s_new = take_d ? pd : (take_l ? left : up);
-      if (boundary) s_new = 0.f;
-      float n_new = 0.f;
-      if (with_matches) {
-        n_new = take_d ? n2s[k] + 1.f : (take_l ? n1s[k] : n1[k]);
-        if (boundary) n_new = 0.f;
-      }
-      if (d == dterm && j == ly) {
-        sc = s_new;
-        nbv = n_new;
-      }
-      s1[k] = s_new;
-      n1[k] = n_new;
-      pb[j] = s_new;
-      pb[W + j] = n_new;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const int j = tid + k * nt;
-      const bool in = j >= 1 && j < W;
-      s2s[k] = s1s[k];
-      n2s[k] = n1s[k];
-      s1s[k] = in ? pb[j - 1] : 0.f;
-      n1s[k] = in ? pb[W + j - 1] : 0.f;
-    }
-  }
-  if (tid == ly % nt) {
-    score[b] = sc;
-    if (with_matches) nbs[b] = nbv;
+// wait until at most n of this thread's commit groups are pending
+__device__ __forceinline__ void cp_wait_pending(int n) {
+  switch (n) {
+    case 1: cp_wait<1>(); break;
+    case 2: cp_wait<2>(); break;
+    case 3: cp_wait<3>(); break;
+    case 4: cp_wait<4>(); break;
+    case 5: cp_wait<5>(); break;
+    case 6: cp_wait<6>(); break;
+    default: cp_wait<0>(); break;
   }
 }
 
-template <int NM, int LPT>
-cudaError_t launch(int nt, const float* fwd, const float* fsc,
-                   const float* fl2t, const float* rev, const float* rsc,
-                   const float* rl2t, const int32_t* lx, const int32_t* ly,
-                   int nm, int k0, int k1, int k2, int B, int Lp,
-                   int with_matches, int topk, float cutoff, float* post,
-                   float* vals, int32_t* lanes, float* score, float* nb,
-                   cudaStream_t stream) {
-  const int W = Lp + 1;
-  const size_t smem = (4 * (size_t)W + 128 + 8 * NM) * sizeof(float);
+// LPT consecutive floats at p (aligned to 4 * min(LPT, 4) bytes) to v,
+// and back
+template <int LPT>
+__device__ __forceinline__ void load_lanes(const float* p, float* v) {
+  if constexpr (LPT % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < LPT / 4; ++q) {
+      const float4 x = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else if constexpr (LPT == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int LPT>
+__device__ __forceinline__ void store_lanes(float* p, const float* v) {
+  if constexpr (LPT % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < LPT / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else if constexpr (LPT == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// shared-memory layout, in floats (every part starts on 16 bytes)
+struct Layout {
+  int slot;   // floats of one row in the ring: lanes 1..Lp, rounded to LPT
+  int stg;    // floats of one ring stage: 2 * nm rows, then 2 * nm scales
+  int fac;    // [2][4] float4: (pa, pb, c) per model, by diagonal parity
+  int edge;   // [2][MAX_WARPS] float2: (s, n) of the lane left of a warp
+  int cnt;    // [2][MAX_WARPS] int: top-k candidates per warp
+  int buf;    // dense: [warps][32 * LPT] staging; top-k: [2] x values,
+              // lanes [nt * LPT]
+  int floats;
+};
+
+__host__ __device__ inline Layout make_layout(int Lp, int nm, int lpt,
+                                              int nt, bool topk, int S) {
+  Layout L;
+  const int r = lpt < 4 ? 4 : lpt;
+  L.slot = (Lp + r - 1) / r * r;
+  L.stg = 2 * nm * L.slot + 8;
+  L.fac = S * L.stg;
+  L.edge = L.fac + 32;
+  L.cnt = L.edge + 4 * MAX_WARPS;
+  L.buf = L.cnt + 2 * MAX_WARPS;
+  L.floats = L.buf + (topk ? 4 : 1) * nt * lpt;
+  return L;
+}
+
+struct Args {
+  const float *fwd, *fsc, *fl2t, *rev, *rsc, *rl2t;
+  const int32_t *lx, *ly;
+  int k0, k1, k2, B, Lp, topk;
+  float cutoff;
+  float *post, *vals;
+  int32_t* lanes;
+  float *score, *nb;
+};
+
+template <int NM, int LPT, bool TOPK, bool WM>
+__global__ void __launch_bounds__(LPT == 4 ? 256 : 512)
+    combine_kernel(const Args a, int S) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int Lp = a.Lp, B = a.B;
+  const int W = Lp + 1, D = 2 * Lp + 1;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int warp = tid >> 5, wl = tid & 31, nw = nt >> 5;
+  const int b = blockIdx.x;
+  const int ly = a.ly[b], dterm = a.lx[b] + ly;
+  const bool ring = S >= 3;
+  const Layout L = make_layout(Lp, NM, LPT, nt, TOPK, ring ? S : 0);
+  float4* fac = reinterpret_cast<float4*>(smem + L.fac);
+  float2* edge = reinterpret_cast<float2*>(smem + L.edge);
+  int* cnt = reinterpret_cast<int*>(smem + L.cnt);
+  float* buf = smem + L.buf;
+  // this thread's lanes: j0 .. j0 + LPT - 1 (lanes >= W are padding)
+  const int j0 = 1 + tid * LPT;
+  const bool active = j0 < W;
+
+  // copies of diagonal q into ring stage st, one commit group
+  auto issue = [&](int q, int st) {
+    if (q < D) {
+      float* sb = smem + st * L.stg;
+      const int rr = 2 * Lp + 2 - q;
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        const float* fr = a.fwd + (((size_t)m * D + q) * B + b) * W + 1;
+        float* fd = sb + 2 * m * L.slot;
+        for (int e = tid; e < Lp; e += nt) cp_async4(fd + e, fr + e);
+        if (rr < D) {
+          // reverse lane e + 1 goes to the index of lane Lp - e
+          const float* rs = a.rev + (((size_t)m * D + rr) * B + b) * W + 1;
+          float* rd = sb + (2 * m + 1) * L.slot + Lp - 1;
+          for (int e = tid; e < Lp; e += nt) cp_async4(rd - e, rs + e);
+        }
+      }
+      float* scl = sb + 2 * NM * L.slot;
+      if (tid < NM)
+        cp_async4(scl + tid, a.fsc + ((size_t)tid * D + q) * B + b);
+      else if (tid < 2 * NM && rr < D)
+        cp_async4(scl + tid, a.rsc + ((size_t)(tid - NM) * D + rr) * B + b);
+    }
+    cp_commit();
+  };
+
+  // thread m < NM keeps model m's total and computes its factors
+  float l2t = 0.f, sfn = 0.f, srn = 0.f;
+  if (tid < NM) {
+    const int kind = tid == 0 ? a.k0 : (tid == 1 ? a.k1 : a.k2);
+    const float f = a.fl2t[(size_t)tid * B + b];
+    l2t = kind == PARTITION ? f : 0.5f * (f + a.rl2t[(size_t)tid * B + b]);
+  }
+  for (int k = tid; k < 2 * MAX_WARPS; k += nt)
+    edge[k] = make_float2(0.f, 0.f);
+  if (ring) {
+    for (int q = 0; q < S - 1; ++q) issue(q, q);
+    cp_wait_pending(S - 2);
+    __syncthreads();
+    if (tid < NM) {
+      const float* scl = smem + 2 * NM * L.slot;
+      fac[tid] = factors(scl[tid], 0.f, l2t);  // rows 0, 1: no reverse row
+    }
+  } else if (tid < NM) {
+    fac[tid] = factors(a.fsc[(size_t)tid * D * B + b], 0.f, l2t);
+    if (D > 1) sfn = a.fsc[((size_t)tid * D + 1) * B + b];
+  }
+
+  float s1[LPT], s2[LPT], n1[LPT], n2[LPT];
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) s1[k] = s2[k] = n1[k] = n2[k] = 0.f;
+  float l2 = 0.f, nl2 = 0.f;  // s, n of (d-2, j0-1)
+  float sc = 0.f, nbv = 0.f;
+  int st = 0;  // ring stage of diagonal d
+
+  // the top-k of diagonal q from its candidate lists (parity q & 1)
+  auto rank_and_store = [&](int q) {
+    const int pq = q & 1;
+    const int* cn = cnt + pq * MAX_WARPS;
+    const float* cv = buf + pq * 2 * nt * LPT;
+    const int* cl = reinterpret_cast<const int*>(cv + nt * LPT);
+    int n = 0;
+    for (int w = 0; w < nw; ++w) n += cn[w];
+    const int mine = cn[warp];
+    float* vrow = a.vals + ((size_t)q * B + b) * a.topk;
+    int32_t* lrow = a.lanes + ((size_t)q * B + b) * a.topk;
+    for (int i = wl; i < mine; i += 32) {
+      const float v = cv[warp * 32 * LPT + i];
+      const int l = cl[warp * 32 * LPT + i];
+      int rk = 0;
+      for (int w = 0; w < nw; ++w) {
+        const int base = w * 32 * LPT, c = cn[w];
+        for (int i2 = 0; i2 < c; ++i2) {
+          const float v2 = cv[base + i2];
+          rk += (v2 > v || (v2 == v && cl[base + i2] < l)) ? 1 : 0;
+        }
+      }
+      if (rk < a.topk) {
+        vrow[rk] = v;
+        lrow[rk] = l;
+      }
+    }
+    if (warp == 0) {
+      for (int s = n + wl; s < a.topk; s += 32) {
+        vrow[s] = 0.f;
+        lrow[s] = 0;
+      }
+    }
+  };
+
+  for (int d = 0; d < D; ++d) {
+    const int par = d & 1;
+    if (ring) cp_wait_pending(S - 3);  // this thread's copies of d + 1
+    __syncthreads();
+    const int st1 = st + 1 == S ? 0 : st + 1;
+    if (ring) issue(d + S - 1, st == 0 ? S - 1 : st - 1);
+    if (tid < NM && d + 1 < D) {
+      const int rr1 = 2 * Lp + 1 - d;  // reverse row of diagonal d + 1
+      if (ring) {
+        const float* scl = smem + st1 * L.stg + 2 * NM * L.slot;
+        fac[(par ^ 1) * 4 + tid] =
+            factors(scl[tid], rr1 < D ? scl[NM + tid] : 0.f, l2t);
+      } else {
+        fac[(par ^ 1) * 4 + tid] = factors(sfn, srn, l2t);
+        if (d + 2 < D) {
+          sfn = a.fsc[((size_t)tid * D + d + 2) * B + b];
+          srn = rr1 - 1 < D ? a.rsc[((size_t)tid * D + rr1 - 1) * B + b]
+                            : 0.f;
+        }
+      }
+    }
+    if constexpr (TOPK) {
+      if (d > 0) rank_and_store(d - 1);
+    }
+
+    // (d-1, j0-1): from the thread to the left, or across a warp edge
+    float l1 = __shfl_up_sync(FULL, s1[LPT - 1], 1);
+    float nl1 = 0.f;
+    if constexpr (WM) nl1 = __shfl_up_sync(FULL, n1[LPT - 1], 1);
+    if (wl == 0) {
+      const float2 e = edge[(par ^ 1) * MAX_WARPS + warp];
+      l1 = e.x;
+      nl1 = e.y;
+    }
+
+    // the posterior of the thread's lanes, RMS over the models
+    const int rr = 2 * Lp + 2 - d;
+    const bool has_rev = rr < D;
+    float acc[LPT];
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      const float4 fc = fac[par * 4 + m];
+      float fv[LPT], rv[LPT];
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) fv[k] = rv[k] = 0.f;
+      if (active) {
+        if (ring) {
+          const float* sb = smem + st * L.stg + tid * LPT;
+          load_lanes<LPT>(sb + 2 * m * L.slot, fv);
+          if (has_rev) load_lanes<LPT>(sb + (2 * m + 1) * L.slot, rv);
+        } else {
+          const float* frow = a.fwd + (((size_t)m * D + d) * B + b) * W;
+          const float* rrow =
+              a.rev + (((size_t)m * D + (has_rev ? rr : 0)) * B + b) * W;
+#pragma unroll
+          for (int k = 0; k < LPT; ++k) {
+            const int j = j0 + k;
+            if (j < W) {
+              fv[k] = frow[j];
+              if (has_rev) rv[k] = rrow[Lp + 1 - j];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const bool in = j0 + k < W;
+        const float f = in ? fv[k] : 0.f;
+        const float r = in && has_rev ? rv[k] : 0.f;
+        float p = (f * fc.x) * (r * fc.y) * fc.z;
+        p = fminf(p, 1.f);
+        p = (f > 0.f && r > 0.f) ? p : 0.f;
+        acc[k] = m == 0 ? p * p : acc[k] + p * p;
+      }
+    }
+    float pv[LPT];
+#pragma unroll
+    for (int k = 0; k < LPT; ++k)
+      pv[k] = NM == 1 ? sqrtf(acc[k]) : sqrtf(acc[k] / (float)NM);
+
+    if constexpr (!TOPK) {
+      // the dense row through the warp's staging row: 32 consecutive
+      // floats a store
+      float* stgw = buf + warp * 32 * LPT;
+      store_lanes<LPT>(stgw + wl * LPT, pv);
+      __syncwarp();
+      float* orow = a.post + ((size_t)d * B + b) * W;
+      const int jw = 1 + warp * 32 * LPT;
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const int j = jw + k * 32 + wl;
+        if (j < W) orow[j] = stgw[k * 32 + wl];
+      }
+      if (tid == 0) orow[0] = 0.f;
+    } else {
+      // this warp's candidates of diagonal d, compacted in lane order
+      float* cv = buf + par * 2 * nt * LPT + warp * 32 * LPT;
+      int* cl = reinterpret_cast<int*>(buf + par * 2 * nt * LPT + nt * LPT) +
+                warp * 32 * LPT;
+      int base = 0;
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const bool c = j0 + k < W && pv[k] >= a.cutoff && pv[k] > 0.f;
+        const unsigned bal = __ballot_sync(FULL, c);
+        if (c) {
+          const int pos = base + __popc(bal & ((1u << wl) - 1u));
+          cv[pos] = pv[k];
+          cl[pos] = j0 + k;
+        }
+        base += __popc(bal);
+      }
+      if (wl == 0) cnt[par * MAX_WARPS + warp] = base;
+    }
+
+    // MWT accuracy DP (tie order diag >= left >= up)
+    float sn[LPT], nn[LPT];
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+      const int j = j0 + k;
+      const float left = k ? s1[k - 1] : l1;
+      const float pd = pv[k] + (k ? s2[k - 1] : l2);
+      const float up = s1[k];
+      const bool take_d = pd >= left && pd >= up;
+      const bool take_l = left >= up;
+      const bool boundary = d <= j;  // i = d - j <= 0 (j >= 1 here)
+      sn[k] = boundary ? 0.f : (take_d ? pd : (take_l ? left : up));
+      nn[k] = 0.f;
+      if constexpr (WM) {
+        const float nd = (k ? n2[k - 1] : nl2) + 1.f;
+        const float nlft = k ? n1[k - 1] : nl1;
+        nn[k] = boundary ? 0.f : (take_d ? nd : (take_l ? nlft : n1[k]));
+      }
+      if (d == dterm && j == ly) {
+        sc = sn[k];
+        nbv = nn[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+      s2[k] = s1[k];
+      s1[k] = sn[k];
+      if constexpr (WM) {
+        n2[k] = n1[k];
+        n1[k] = nn[k];
+      }
+    }
+    l2 = l1;
+    nl2 = nl1;
+    if (wl == 31 && warp + 1 < nw)
+      edge[par * MAX_WARPS + warp + 1] = make_float2(sn[LPT - 1], nn[LPT - 1]);
+    st = st1;
+  }
+  if constexpr (TOPK) {
+    __syncthreads();
+    rank_and_store(D - 1);
+  }
+  if (tid == (ly >= 1 ? (ly - 1) / LPT : 0)) {
+    a.score[b] = sc;
+    if (WM) a.nb[b] = nbv;
+  }
+}
+
+int device_attr(cudaDeviceAttr attr) {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, attr, dev);
+  return v;
+}
+
+template <int NM, int LPT, bool TOPK, bool WM>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int Lp = a.Lp;
+  const int nt = std::max(32, ((Lp + LPT - 1) / LPT + 31) / 32 * 32);
+  // the ring's depth: two blocks an SM if 3 stages fit so, else one
+  const int fixed = make_layout(Lp, NM, LPT, nt, TOPK, 0).floats * 4;
+  const int stage = make_layout(Lp, NM, LPT, nt, TOPK, 1).floats * 4 - fixed;
+  const int per_sm = device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
+  const int reserved = device_attr(cudaDevAttrReservedSharedMemoryPerBlock);
+  const int optin = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  int S = std::min(MAX_STAGES, (per_sm / 2 - reserved - fixed) / stage);
+  if (S < 3) S = std::min(MAX_STAGES, (optin - fixed) / stage);
+  if (S < 3) S = 0;  // no ring: direct loads
+  const size_t smem = (size_t)make_layout(Lp, NM, LPT, nt, TOPK, S).floats * 4;
+  auto kern = combine_kernel<NM, LPT, TOPK, WM>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        combine_kernel<NM, LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  combine_kernel<NM, LPT><<<B, nt, smem, stream>>>(
-      fwd, fsc, fl2t, rev, rsc, rl2t, lx, ly, k0, k1, k2, B, Lp,
-      with_matches, topk, cutoff, post, vals, lanes, score, nb);
+  kern<<<a.B, nt, smem, stream>>>(a, S);
   return cudaGetLastError();
+}
+
+template <int NM, int LPT>
+cudaError_t launch_mode(const Args& a, bool with_matches,
+                        cudaStream_t stream) {
+  if (a.topk > 0)
+    return with_matches ? launch<NM, LPT, true, true>(a, stream)
+                        : launch<NM, LPT, true, false>(a, stream);
+  return with_matches ? launch<NM, LPT, false, true>(a, stream)
+                      : launch<NM, LPT, false, false>(a, stream);
+}
+
+template <int NM>
+cudaError_t launch_lpt(const Args& a, bool with_matches,
+                       cudaStream_t stream) {
+  if (a.Lp <= 1024) return launch_mode<NM, 2>(a, with_matches, stream);
+  if (a.Lp <= 4096) return launch_mode<NM, 8>(a, with_matches, stream);
+  return launch_mode<NM, 16>(a, with_matches, stream);
 }
 
 }  // namespace
@@ -301,32 +532,18 @@ extern "C" int combine_launch(const void* fwd, const void* fsc,
                               void* post, void* vals, void* lanes,
                               void* score, void* nb, void* stream) {
   const int W = Lp + 1;
-  int lpt = W <= 1024 ? 1 : W <= 2048 ? 2 : W <= 4096 ? 4 : W <= 8192 ? 8 : 0;
-  if (lpt == 0 || nm < 1 || nm > 3 || B < 1 || topk < 0 || topk > W)
+  if (Lp < 0 || W > 8192 || nm < 1 || nm > 3 || B < 1 || topk < 0 ||
+      topk > W)
     return (int)cudaErrorInvalidValue;
-  const int nt = (((W + lpt - 1) / lpt) + 31) / 32 * 32;
-#define ARGS                                                              \
-  nt, (const float*)fwd, (const float*)fsc, (const float*)fl2t,           \
-      (const float*)rev, (const float*)rsc, (const float*)rl2t,           \
-      (const int32_t*)lx, (const int32_t*)ly, nm, k0, k1, k2, B, Lp,      \
-      with_matches, topk, cutoff, (float*)post, (float*)vals,             \
-      (int32_t*)lanes, (float*)score, (float*)nb, (cudaStream_t)stream
-  cudaError_t err;
-#define LPTS(NM)                                          \
-  switch (lpt) {                                          \
-    case 1: err = launch<NM, 1>(ARGS); break;             \
-    case 2: err = launch<NM, 2>(ARGS); break;             \
-    case 4: err = launch<NM, 4>(ARGS); break;             \
-    default: err = launch<NM, 8>(ARGS); break;            \
-  }
-  if (nm == 1) {
-    LPTS(1)
-  } else if (nm == 2) {
-    LPTS(2)
-  } else {
-    LPTS(3)
-  }
-#undef LPTS
-#undef ARGS
+  const Args a = {(const float*)fwd, (const float*)fsc, (const float*)fl2t,
+                  (const float*)rev, (const float*)rsc, (const float*)rl2t,
+                  (const int32_t*)lx, (const int32_t*)ly, k0, k1, k2, B, Lp,
+                  topk, cutoff, (float*)post, (float*)vals, (int32_t*)lanes,
+                  (float*)score, (float*)nb};
+  const auto st = (cudaStream_t)stream;
+  const bool wm = with_matches != 0;
+  cudaError_t err = nm == 1   ? launch_lpt<1>(a, wm, st)
+                    : nm == 2 ? launch_lpt<2>(a, wm, st)
+                              : launch_lpt<3>(a, wm, st);
   return (int)err;
 }

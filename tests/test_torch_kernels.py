@@ -161,3 +161,70 @@ def test_sweep_lane_edges_on_card(cuda_device, mode, lp, b):
             err = (k["planes"][m] - p["planes"][m]).abs().amax(dim=2)
             assert float((err / rowmax).max()) <= 1e-5
             assert float((k["log2t"][m] - p["log2t"][m]).abs().max()) <= 2e-4
+
+
+def _combine_vs_plain(fk, rk, lx, ly, models, topks=(1, 16), cutoff=0.01):
+    """combine against combine_reference on the same (kernel) sweeps:
+    dense + match counts; then the fused top-k for each k in `topks`
+    at `cutoff` against `topk_skew` of the kernel's own dense plane, as
+    test_kernels_match_plain_on_card holds it (the two planes may differ
+    in the last bit, which could reorder near-equal values)."""
+    post, score, nb = twk.combine(fk, rk, lx, ly, models, with_matches=True)
+    post_p, score_p, nb_p = twk.combine_reference(fk, rk, lx, ly, models,
+                                                  with_matches=True)
+    assert float((post - post_p).abs().max()) <= 2e-4
+    D, _, W = post.shape
+    d = torch.arange(D, device=post.device)[:, None, None]
+    j = torch.arange(W, device=post.device)[None, None, :]
+    grid = ((j >= 1) & (j <= ly[None, :, None]) & (d - j >= 1)
+            & (d - j <= lx[None, :, None]))
+    assert int((post[~grid] != 0).sum()) == 0
+    torch.testing.assert_close(score, score_p, rtol=1e-4, atol=1e-3)
+    assert torch.equal(nb, nb_p)
+    for k in topks:
+        k = min(k, W)
+        vals, lanes, sc_t = twk.combine(fk, rk, lx, ly, models, topk=k,
+                                        cutoff=cutoff)
+        vw, lw = twf.topk_skew(post, k, cutoff)
+        assert float((vals - vw).abs().max()) <= 1e-7
+        assert torch.equal(lanes[vw > 0], lw[vw > 0])
+        assert torch.equal(sc_t, score)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("lp", [1, 31, 32, 33, 127, 129, 511, 513, 1100,
+                                4100])
+@pytest.mark.parametrize("mode", list(MODEL_SETS))
+def test_combine_lane_edges_on_card(cuda_device, mode, lp, b):
+    """combine against its plain version at the edges of its lane mapping
+    (a warp's lanes, 4, 8 and 16 lanes a thread, a ring too deep for
+    shared memory at Lp = 4,100), x or y of full length so the MWT
+    terminal sits on the last lane and the last diagonal: dense plane
+    within 2e-4 and exact zeros outside the grid, score rtol 1e-4 /
+    atol 1e-3, match counts exact, top-k 1 and 16 values within 1e-7 and
+    lanes equal wherever the value is positive."""
+    models = MODEL_SETS[mode]
+    X, Y, lx, ly = _edge_batch(cuda_device, lp, b, seed=lp * 11 + b)
+    tf, tr = tpw._wf_tables(mode, 0.17, cuda_device)
+    fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
+    _combine_vs_plain(fk, rk, lx, ly, models)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cutoff", [0.01, 0.0])
+@pytest.mark.parametrize("mode", list(MODEL_SETS))
+def test_combine_topk_ties_on_card(cuda_device, mode, cutoff):
+    """Pairs with x = y (a homopolymer and a repeated motif): mirror cells
+    of an anti-diagonal hold equal posteriors, so equal values compete
+    for the top-k and the lowest lane must come first.  At cutoff 0 every
+    positive lane is a candidate, far more than a warp's 32."""
+    lp = 160
+    x = np.stack([np.full(lp, 3, np.int8),
+                  np.tile(np.array([1, 5, 9], np.int8), lp)[:lp]])
+    X = torch.from_numpy(x).to(cuda_device)
+    lx = torch.full((2,), lp, dtype=torch.int32, device=cuda_device)
+    tf, tr = tpw._wf_tables(mode, 0.17, cuda_device)
+    models = MODEL_SETS[mode]
+    fk, rk = _sweeps(twk.sweep, X, X.clone(), lx, lx.clone(), tf, tr, models)
+    _combine_vs_plain(fk, rk, lx, lx.clone(), models, cutoff=cutoff)
