@@ -19,67 +19,73 @@
 // MWT step breaks ties diag >= left >= up.  Built with --fmad=false, so
 // every product and sum rounds as the plain version's.
 //
-// What bounds it on the H100: bytes.  Each cell of the 2 * nm input planes
-// is read once and the dense plane written once (3.77 GB, 1.13 ms at mix,
-// Lp = 512, B = 256), against a few dozen f32 operations a cell.  But a
-// pair is a chain of 2Lp+1 diagonals, each needing the MWT values of the
-// one before, so a diagonal whose loads are issued and consumed in turn
-// pays a DRAM round trip (or several) on that chain.  The design takes
-// the loads off the chain.
+// What bounds it on the H100: bytes.  Each cell of the 2 * nm input
+// planes is read once and the dense plane written once (3.77 GB, 1.13 ms
+// at mix, Lp = 512, B = 256), against a few dozen f32 operations a cell.
+// Only the MWT DP is a chain: diagonal d needs the values of d - 1 and
+// d - 2, so a pair's 2Lp+1 diagonals run in turn.  The posterior of a
+// diagonal needs nothing of its neighbours.  A block that walks all its
+// lanes through the diagonals in lockstep puts every load, the posterior
+// arithmetic and the row store on that chain, and then pays microseconds
+// a diagonal however far ahead its loads are issued.  This kernel keeps
+// them off it.
 //
-// Layout.  One block per pair; each thread owns LPT contiguous lanes
-// (2 up to Lp = 1,024: 8 warps a block at Lp = 512, 2 blocks an SM; 8 up
-// to 4,096; 16 up to 8,191).  Lane 0 is outside the grid (its posterior
-// is 0 and its MWT value a boundary 0), so no thread owns it.
+// Layout: one block per pair, two kinds of warps.
+// - P producer warps (7 at Lp <= 512, else 8) take whole diagonals in
+//   turn (warp w: d = w, w + P, ...).  The 32 lanes of a warp stride over
+//   the row, so every load and store covers consecutive addresses, and a
+//   warp has 8 lanes' worth of the 2 * nm rows in flight at once: across
+//   the producers, the loads of up to P diagonals are in flight while the
+//   DP works on an earlier one.  A warp computes its diagonal's scale
+//   factors itself (lane m for model m, the scales loaded one turn ahead,
+//   shuffled to the warp), writes the posterior row into a ring of R rows
+//   in shared memory and, in the dense mode, straight to the output
+//   plane.
+// - G DP warps (one per 32 * LPT lanes; LPT = 16 up to Lp = 4,096, else
+//   32) run the MWT DP over the ring's rows in diagonal order, LPT
+//   contiguous lanes a thread: the j-1 neighbour is a register inside a
+//   thread, a shuffle between threads, and one shared slot per warp edge
+//   between DP warps, published by one named barrier of the DP warps a
+//   diagonal.  Up to Lp = 512 one DP warp holds the whole pair, and the
+//   chain has no barrier at all.
+// The ring is the pipeline: a row is handed over by two mbarriers, `full`
+// (the producer's 32 lanes arrive after writing it) and `empty` (the DP
+// lanes arrive after reading it), so a producer runs up to R diagonals
+// ahead of the DP and waits only when the ring is full.  R (2 to 16 rows)
+// is chosen at launch so that two blocks fit an SM where they can.
 //
-// The ring.  A ring of S <= 8 diagonals in shared memory holds each
-// diagonal's nm forward rows, nm reversed rows and 2 * nm scales, filled
-// S - 1 diagonals ahead with cp.async (one commit group a diagonal).  A
-// thread reads its lanes of every row as one float2 or float4s.  The
-// reversed row is stored reversed (reverse lane Lp+1-j at the index of
-// lane j), so both rows read alike.  The diagonal's split factors (pa, pb, c) are computed
-// once, by one thread a model, one diagonal ahead, from the scales in the
-// ring, and read from shared memory.  S is chosen at launch from W so that
-// two blocks fit an SM (one if it must); where even one block cannot
-// hold 3 stages (nm >= 2 and very long pairs), the block reads its lanes
-// straight from device memory instead, with the scales prefetched one
-// diagonal ahead in registers.
+// Alignment.  A row of W = Lp + 1 floats starts on a 4-byte boundary
+// only, so every global access is a plain 4-byte load or store, never a
+// vector or bulk copy, and nothing is read past a row's end.  In the
+// ring, lane j sits at index j + 3 of its row, so that a DP thread's
+// lanes 1 + LPT * t ... start on 16 bytes and are read as float4s.
 //
-// Alignment.  Rows are W = Lp + 1 floats long, so a row starts on a
-// 4-byte boundary only.  Every copy is a 4-byte cp.async: no copy assumes
-// more alignment than 4 bytes, none reads outside its row, and the copy
-// places each float at an aligned index of the ring, where the vector
-// reads need it.  A warp's copies cover 32 consecutive floats of a row.
-//
-// One barrier a diagonal.  At diagonal d every thread waits for its own
-// copies of diagonal d + 1, then the block meets once.  That barrier
-// publishes the ring stages of d and d + 1, the factors of d, the MWT
-// values that cross a warp edge and the top-k candidates of d - 1, and it
-// frees the stage of d - 1 for refilling.  The MWT DP carries s (and n)
-// of diagonals d-1 and d-2 in registers; the (., j-1) neighbour is a
-// register inside a thread, a shuffle between threads and one shared slot
-// per warp edge between warps.  The dense row goes out through a per-warp
-// staging row, so each store covers 32 consecutive floats.
-//
-// Top-k without a barrier a round.  Each warp compacts its lanes >= cutoff
-// into its part of a shared candidate list (ballot and popc; the list has
-// room for every lane).  After the next diagonal's barrier each warp ranks
-// its own candidates against all of them -- the rank is the number that
-// are larger, or equal at a lower lane, which is the order of the JAX
-// package's top_k -- and writes the first k ranks; warp 0 zeroes the empty
-// slots.  No barrier is added: the ranking of d - 1 rides in diagonal d.
+// Top-k with no block barrier.  The producer warp of a diagonal ranks its
+// own row: while it computes the row it compacts the lanes >= cutoff into
+// a per-warp candidate list (ballot and popc), and each candidate's rank
+// is the number of candidates that are larger, or equal at a lower lane,
+// which is the order of the JAX package's top_k.  The ranks below k are
+// written, then zeros to the empty slots.  Up to 32 candidates (the match
+// posteriors of an anti-diagonal sum to at most 1 a model, so at cutoff
+// 0.01 there are rarely more than 20) the ranking is one lane a candidate
+// and a shuffle per candidate; with more, the warp takes the top k from
+// the ring row in k rounds of a warp-wide arg-max, in the same order, so
+// no bound on the count is assumed.  The posterior plane never reaches
+// device memory in this mode.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <algorithm>
-#include <stdint.h>
 
 namespace {
 
 constexpr int PARTITION = 2;
-constexpr int MAX_WARPS = 32;
-constexpr int MAX_STAGES = 8;
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DP_WARPS = 8;
+constexpr int MAX_PRODUCERS = 8;
+constexpr int MAX_RING = 16;
+constexpr int UNROLL = 8;  // a producer lane's lanes in flight
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float pow2i(float e) {
   // exact 2**e for integer-valued e, clamped to the normal range
@@ -96,95 +102,48 @@ __device__ __forceinline__ float4 factors(float sf, float sr, float l2t) {
   return make_float4(pow2i(a), pow2i(b2), exp2f(-(t - ti)), 0.f);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
-// wait until at most n of this thread's commit groups are pending
-__device__ __forceinline__ void cp_wait_pending(int n) {
-  switch (n) {
-    case 1: cp_wait<1>(); break;
-    case 2: cp_wait<2>(); break;
-    case 3: cp_wait<3>(); break;
-    case 4: cp_wait<4>(); break;
-    case 5: cp_wait<5>(); break;
-    case 6: cp_wait<6>(); break;
-    default: cp_wait<0>(); break;
+__device__ __forceinline__ bool mbar_done(uint64_t* bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  while (!mbar_done(bar, parity)) {
   }
 }
 
-// LPT consecutive floats at p (aligned to 4 * min(LPT, 4) bytes) to v,
-// and back
-template <int LPT>
-__device__ __forceinline__ void load_lanes(const float* p, float* v) {
-  if constexpr (LPT % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < LPT / 4; ++q) {
-      const float4 x = reinterpret_cast<const float4*>(p)[q];
-      v[4 * q] = x.x;
-      v[4 * q + 1] = x.y;
-      v[4 * q + 2] = x.z;
-      v[4 * q + 3] = x.w;
-    }
-  } else if constexpr (LPT == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x;
-    v[1] = x.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
-template <int LPT>
-__device__ __forceinline__ void store_lanes(float* p, const float* v) {
-  if constexpr (LPT % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < LPT / 4; ++q)
-      reinterpret_cast<float4*>(p)[q] =
-          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  } else if constexpr (LPT == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
-  }
-}
-
-// shared-memory layout, in floats (every part starts on 16 bytes)
-struct Layout {
-  int slot;   // floats of one row in the ring: lanes 1..Lp, rounded to LPT
-  int stg;    // floats of one ring stage: 2 * nm rows, then 2 * nm scales
-  int fac;    // [2][4] float4: (pa, pb, c) per model, by diagonal parity
-  int edge;   // [2][MAX_WARPS] float2: (s, n) of the lane left of a warp
-  int cnt;    // [2][MAX_WARPS] int: top-k candidates per warp
-  int buf;    // dense: [warps][32 * LPT] staging; top-k: [2] x values,
-              // lanes [nt * LPT]
-  int floats;
-};
-
-__host__ __device__ inline Layout make_layout(int Lp, int nm, int lpt,
-                                              int nt, bool topk, int S) {
-  Layout L;
-  const int r = lpt < 4 ? 4 : lpt;
-  L.slot = (Lp + r - 1) / r * r;
-  L.stg = 2 * nm * L.slot + 8;
-  L.fac = S * L.stg;
-  L.edge = L.fac + 32;
-  L.cnt = L.edge + 4 * MAX_WARPS;
-  L.buf = L.cnt + 2 * MAX_WARPS;
-  L.floats = L.buf + (topk ? 4 : 1) * nt * lpt;
-  return L;
+// named barrier 1 among the first `n` threads (the DP warps)
+__device__ __forceinline__ void dp_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
 }
 
 struct Args {
@@ -197,240 +156,236 @@ struct Args {
   float *score, *nb;
 };
 
-template <int NM, int LPT, bool TOPK, bool WM>
-__global__ void __launch_bounds__(LPT == 4 ? 256 : 512)
-    combine_kernel(const Args a, int S) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int Lp = a.Lp, B = a.B;
-  const int W = Lp + 1, D = 2 * Lp + 1;
-  const int nt = blockDim.x, tid = threadIdx.x;
-  const int warp = tid >> 5, wl = tid & 31, nw = nt >> 5;
-  const int b = blockIdx.x;
-  const int ly = a.ly[b], dterm = a.lx[b] + ly;
-  const bool ring = S >= 3;
-  const Layout L = make_layout(Lp, NM, LPT, nt, TOPK, ring ? S : 0);
-  float4* fac = reinterpret_cast<float4*>(smem + L.fac);
-  float2* edge = reinterpret_cast<float2*>(smem + L.edge);
-  int* cnt = reinterpret_cast<int*>(smem + L.cnt);
-  float* buf = smem + L.buf;
-  // this thread's lanes: j0 .. j0 + LPT - 1 (lanes >= W are padding)
-  const int j0 = 1 + tid * LPT;
-  const bool active = j0 < W;
+// Shared memory, in this order: the ring (R rows of `ring_row` floats),
+// the barriers (full[R], empty[R]), the DP warps' edge slots
+// ([2][MAX_DP_WARPS] float2), the producers' top-k candidates
+// ([MAX_PRODUCERS][32] values, then as many lanes).
+__host__ __device__ inline int ring_row(int G, int lpt) {
+  return G * 32 * lpt + 4;
+}
 
-  // copies of diagonal q into ring stage st, one commit group
-  auto issue = [&](int q, int st) {
-    if (q < D) {
-      float* sb = smem + st * L.stg;
-      const int rr = 2 * Lp + 2 - q;
+__host__ __device__ inline size_t smem_bytes(int G, int lpt, int R) {
+  return (size_t)R * ring_row(G, lpt) * 4 + 2 * R * 8 +
+         2 * MAX_DP_WARPS * 8 + 2 * MAX_PRODUCERS * 32 * 4;
+}
+
+// The top k of a ring row (lane j at row[j]) into vrow / lrow, by one
+// warp in k rounds: each round takes the largest (value, lowest lane)
+// that comes after the last one taken, among the values >= cutoff, and
+// the first round with nothing left fills the remaining slots with zeros.
+__device__ void select_topk(const float* row, int W, int k, float cutoff,
+                            float* vrow, int32_t* lrow) {
+  const int l = threadIdx.x & 31;
+  float pv = INFINITY;  // the last (value, lane) taken
+  int pl = -1;
+  for (int t = 0; t < k; ++t) {
+    float bv = 0.f;
+    int bl = 0x7fffffff;
+    for (int j = 1 + l; j < W; j += 32) {
+      const float v = row[j];
+      const bool after = v < pv || (v == pv && j > pl);
+      if (v >= cutoff && v > 0.f && after && v > bv) {
+        bv = v;  // j rises, so among equal values the lowest lane stays
+        bl = j;
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(FULL_MASK, bv, o);
+      const int ol = __shfl_xor_sync(FULL_MASK, bl, o);
+      if (ov > bv || (ov == bv && ol < bl)) {
+        bv = ov;
+        bl = ol;
+      }
+    }
+    if (!(bv > 0.f)) {
+      for (int q = t + l; q < k; q += 32) {
+        vrow[q] = 0.f;
+        lrow[q] = 0;
+      }
+      return;
+    }
+    if (l == 0) {
+      vrow[t] = bv;
+      lrow[t] = bl;
+    }
+    pv = bv;
+    pl = bl;
+  }
+}
+
+// Producer warp pw of P: the posterior rows of diagonals pw, pw + P, ...
+template <int NM, bool TOPK>
+__device__ void produce(const Args& a, int pw, int P, int R, int rowf,
+                        float* ring, uint64_t* full, uint64_t* empty,
+                        float* cand_v, int* cand_l) {
+  const int l = threadIdx.x & 31;
+  const int Lp = a.Lp, B = a.B, W = Lp + 1, D = 2 * Lp + 1;
+  const int b = blockIdx.x;
+  // lane m < NM: model m's total, and its scales one turn ahead
+  float l2t = 0.f, sf = 0.f, sr = 0.f;
+  if (l < NM) {
+    const int kind = l == 0 ? a.k0 : (l == 1 ? a.k1 : a.k2);
+    const float f = a.fl2t[(size_t)l * B + b];
+    l2t = kind == PARTITION ? f : 0.5f * (f + a.rl2t[(size_t)l * B + b]);
+  }
+  auto load_scales = [&](int d) {
+    if (l < NM && d < D) {
+      const int rr = 2 * Lp + 2 - d;
+      sf = a.fsc[((size_t)l * D + d) * B + b];
+      sr = rr < D ? a.rsc[((size_t)l * D + rr) * B + b] : 0.f;
+    }
+  };
+  load_scales(pw);
+  for (int d = pw; d < D; d += P) {
+    const int s = d % R, use = d / R;
+    const float4 fl = factors(sf, sr, l2t);
+    load_scales(d + P);
+    float pa[NM], pb[NM], cc[NM];
+    const float* frow[NM];
+    const float* rrow[NM];
+    const int rr = 2 * Lp + 2 - d;
+    const bool has_rev = rr < D;
 #pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        const float* fr = a.fwd + (((size_t)m * D + q) * B + b) * W + 1;
-        float* fd = sb + 2 * m * L.slot;
-        for (int e = tid; e < Lp; e += nt) cp_async4(fd + e, fr + e);
-        if (rr < D) {
-          // reverse lane e + 1 goes to the index of lane Lp - e
-          const float* rs = a.rev + (((size_t)m * D + rr) * B + b) * W + 1;
-          float* rd = sb + (2 * m + 1) * L.slot + Lp - 1;
-          for (int e = tid; e < Lp; e += nt) cp_async4(rd - e, rs + e);
+    for (int m = 0; m < NM; ++m) {
+      pa[m] = __shfl_sync(FULL_MASK, fl.x, m);
+      pb[m] = __shfl_sync(FULL_MASK, fl.y, m);
+      cc[m] = __shfl_sync(FULL_MASK, fl.z, m);
+      frow[m] = a.fwd + (((size_t)m * D + d) * B + b) * W;
+      // the reverse row is read at lane Lp + 1 - j
+      rrow[m] = has_rev ? a.rev + (((size_t)m * D + rr) * B + b) * W + Lp + 1
+                        : frow[m];
+    }
+    float* out = TOPK ? nullptr : a.post + ((size_t)d * B + b) * W;
+    if (!TOPK && l == 0) out[0] = 0.f;  // lane 0 is outside the grid
+    float* row = ring + (size_t)s * rowf + 3;  // lane j at row[j]
+    int ncand = 0;
+    // lanes 1 .. Lp, 32 * UNROLL at a time (j0 is the same in the warp)
+    for (int j0 = 1; j0 < W; j0 += 32 * UNROLL) {
+      float fv[UNROLL][NM], rv[UNROLL][NM];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int j = j0 + 32 * u + l;
+#pragma unroll
+        for (int m = 0; m < NM; ++m) {
+          fv[u][m] = j < W ? frow[m][j] : 0.f;
+          rv[u][m] = has_rev && j < W ? rrow[m][-j] : 0.f;
         }
       }
-      float* scl = sb + 2 * NM * L.slot;
-      if (tid < NM)
-        cp_async4(scl + tid, a.fsc + ((size_t)tid * D + q) * B + b);
-      else if (tid < 2 * NM && rr < D)
-        cp_async4(scl + tid, a.rsc + ((size_t)(tid - NM) * D + rr) * B + b);
+      // the DP has read the row this one overwrites
+      if (j0 == 1 && use > 0) mbar_wait(empty + s, (use - 1) & 1);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int j = j0 + 32 * u + l;
+        float acc = 0.f;
+#pragma unroll
+        for (int m = 0; m < NM; ++m) {
+          const float f = fv[u][m], r = rv[u][m];
+          float p = (f * pa[m]) * (r * pb[m]) * cc[m];
+          p = fminf(p, 1.f);
+          p = (f > 0.f && r > 0.f) ? p : 0.f;
+          acc = m == 0 ? p * p : acc + p * p;
+        }
+        const float post = NM == 1 ? sqrtf(acc) : sqrtf(acc / (float)NM);
+        if (j < W) {
+          row[j] = post;
+          if constexpr (!TOPK) out[j] = post;
+        }
+        if constexpr (TOPK) {
+          const bool c = j < W && post >= a.cutoff && post > 0.f;
+          const unsigned bal = __ballot_sync(FULL_MASK, c);
+          const int pos = ncand + __popc(bal & ((1u << l) - 1u));
+          if (c && pos < 32) {
+            cand_v[pos] = post;
+            cand_l[pos] = j;
+          }
+          ncand += __popc(bal);
+        }
+      }
     }
-    cp_commit();
-  };
-
-  // thread m < NM keeps model m's total and computes its factors
-  float l2t = 0.f, sfn = 0.f, srn = 0.f;
-  if (tid < NM) {
-    const int kind = tid == 0 ? a.k0 : (tid == 1 ? a.k1 : a.k2);
-    const float f = a.fl2t[(size_t)tid * B + b];
-    l2t = kind == PARTITION ? f : 0.5f * (f + a.rl2t[(size_t)tid * B + b]);
-  }
-  for (int k = tid; k < 2 * MAX_WARPS; k += nt)
-    edge[k] = make_float2(0.f, 0.f);
-  if (ring) {
-    for (int q = 0; q < S - 1; ++q) issue(q, q);
-    cp_wait_pending(S - 2);
-    __syncthreads();
-    if (tid < NM) {
-      const float* scl = smem + 2 * NM * L.slot;
-      fac[tid] = factors(scl[tid], 0.f, l2t);  // rows 0, 1: no reverse row
+    if constexpr (TOPK) {
+      float* vrow = a.vals + ((size_t)d * B + b) * a.topk;
+      int32_t* lrow = a.lanes + ((size_t)d * B + b) * a.topk;
+      __syncwarp();
+      if (ncand <= 32) {
+        // one lane a candidate: its rank among all of them
+        const float v = l < ncand ? cand_v[l] : 0.f;
+        const int jl = l < ncand ? cand_l[l] : 0;
+        int rank = 0;
+        for (int i = 0; i < ncand; ++i) {
+          const float v2 = __shfl_sync(FULL_MASK, v, i);
+          const int j2 = __shfl_sync(FULL_MASK, jl, i);
+          rank += (v2 > v || (v2 == v && j2 < jl)) ? 1 : 0;
+        }
+        if (l < ncand && rank < a.topk) {
+          vrow[rank] = v;
+          lrow[rank] = jl;
+        }
+        for (int q = ncand + l; q < a.topk; q += 32) {
+          vrow[q] = 0.f;
+          lrow[q] = 0;
+        }
+      } else {
+        select_topk(row, W, a.topk, a.cutoff, vrow, lrow);
+      }
+      __syncwarp();  // the list is this warp's again next turn
     }
-  } else if (tid < NM) {
-    fac[tid] = factors(a.fsc[(size_t)tid * D * B + b], 0.f, l2t);
-    if (D > 1) sfn = a.fsc[((size_t)tid * D + 1) * B + b];
+    mbar_arrive(full + s);  // each lane after its own writes
   }
+}
 
+// DP warp g of G: the MWT DP over lanes 1 + 32 * LPT * g ... of every
+// diagonal, in order, from the ring.
+template <int LPT, bool WM>
+__device__ void mwt(const Args& a, int g, int G, int R, int rowf,
+                    const float* ring, uint64_t* full, uint64_t* empty,
+                    float2* edge) {
+  const int l = threadIdx.x & 31;
+  const int Lp = a.Lp, W = Lp + 1, D = 2 * Lp + 1;
+  const int b = blockIdx.x;
+  const int ly = a.ly[b], dterm = a.lx[b] + ly;
+  const int j0 = 1 + (g * 32 + l) * LPT;  // this thread's lanes
   float s1[LPT], s2[LPT], n1[LPT], n2[LPT];
 #pragma unroll
   for (int k = 0; k < LPT; ++k) s1[k] = s2[k] = n1[k] = n2[k] = 0.f;
   float l2 = 0.f, nl2 = 0.f;  // s, n of (d-2, j0-1)
   float sc = 0.f, nbv = 0.f;
-  int st = 0;  // ring stage of diagonal d
-
-  // the top-k of diagonal q from its candidate lists (parity q & 1)
-  auto rank_and_store = [&](int q) {
-    const int pq = q & 1;
-    const int* cn = cnt + pq * MAX_WARPS;
-    const float* cv = buf + pq * 2 * nt * LPT;
-    const int* cl = reinterpret_cast<const int*>(cv + nt * LPT);
-    int n = 0;
-    for (int w = 0; w < nw; ++w) n += cn[w];
-    const int mine = cn[warp];
-    float* vrow = a.vals + ((size_t)q * B + b) * a.topk;
-    int32_t* lrow = a.lanes + ((size_t)q * B + b) * a.topk;
-    for (int i = wl; i < mine; i += 32) {
-      const float v = cv[warp * 32 * LPT + i];
-      const int l = cl[warp * 32 * LPT + i];
-      int rk = 0;
-      for (int w = 0; w < nw; ++w) {
-        const int base = w * 32 * LPT, c = cn[w];
-        for (int i2 = 0; i2 < c; ++i2) {
-          const float v2 = cv[base + i2];
-          rk += (v2 > v || (v2 == v && cl[base + i2] < l)) ? 1 : 0;
-        }
-      }
-      if (rk < a.topk) {
-        vrow[rk] = v;
-        lrow[rk] = l;
-      }
-    }
-    if (warp == 0) {
-      for (int s = n + wl; s < a.topk; s += 32) {
-        vrow[s] = 0.f;
-        lrow[s] = 0;
-      }
-    }
-  };
-
+  int s = 0;
+  unsigned ph = 0;  // ring row of diagonal d and its barrier phase parity
   for (int d = 0; d < D; ++d) {
     const int par = d & 1;
-    if (ring) cp_wait_pending(S - 3);  // this thread's copies of d + 1
-    __syncthreads();
-    const int st1 = st + 1 == S ? 0 : st + 1;
-    if (ring) issue(d + S - 1, st == 0 ? S - 1 : st - 1);
-    if (tid < NM && d + 1 < D) {
-      const int rr1 = 2 * Lp + 1 - d;  // reverse row of diagonal d + 1
-      if (ring) {
-        const float* scl = smem + st1 * L.stg + 2 * NM * L.slot;
-        fac[(par ^ 1) * 4 + tid] =
-            factors(scl[tid], rr1 < D ? scl[NM + tid] : 0.f, l2t);
-      } else {
-        fac[(par ^ 1) * 4 + tid] = factors(sfn, srn, l2t);
-        if (d + 2 < D) {
-          sfn = a.fsc[((size_t)tid * D + d + 2) * B + b];
-          srn = rr1 - 1 < D ? a.rsc[((size_t)tid * D + rr1 - 1) * B + b]
-                            : 0.f;
-        }
-      }
-    }
-    if constexpr (TOPK) {
-      if (d > 0) rank_and_store(d - 1);
-    }
-
     // (d-1, j0-1): from the thread to the left, or across a warp edge
-    float l1 = __shfl_up_sync(FULL, s1[LPT - 1], 1);
+    float l1 = __shfl_up_sync(FULL_MASK, s1[LPT - 1], 1);
     float nl1 = 0.f;
-    if constexpr (WM) nl1 = __shfl_up_sync(FULL, n1[LPT - 1], 1);
-    if (wl == 0) {
-      const float2 e = edge[(par ^ 1) * MAX_WARPS + warp];
+    if constexpr (WM) nl1 = __shfl_up_sync(FULL_MASK, n1[LPT - 1], 1);
+    if (l == 0) {
+      const float2 e = g == 0 ? make_float2(0.f, 0.f)
+                              : edge[(par ^ 1) * MAX_DP_WARPS + g];
       l1 = e.x;
       nl1 = e.y;
     }
-
-    // the posterior of the thread's lanes, RMS over the models
-    const int rr = 2 * Lp + 2 - d;
-    const bool has_rev = rr < D;
-    float acc[LPT];
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) acc[k] = 0.f;
-#pragma unroll
-    for (int m = 0; m < NM; ++m) {
-      const float4 fc = fac[par * 4 + m];
-      float fv[LPT], rv[LPT];
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) fv[k] = rv[k] = 0.f;
-      if (active) {
-        if (ring) {
-          const float* sb = smem + st * L.stg + tid * LPT;
-          load_lanes<LPT>(sb + 2 * m * L.slot, fv);
-          if (has_rev) load_lanes<LPT>(sb + (2 * m + 1) * L.slot, rv);
-        } else {
-          const float* frow = a.fwd + (((size_t)m * D + d) * B + b) * W;
-          const float* rrow =
-              a.rev + (((size_t)m * D + (has_rev ? rr : 0)) * B + b) * W;
-#pragma unroll
-          for (int k = 0; k < LPT; ++k) {
-            const int j = j0 + k;
-            if (j < W) {
-              fv[k] = frow[j];
-              if (has_rev) rv[k] = rrow[Lp + 1 - j];
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        const bool in = j0 + k < W;
-        const float f = in ? fv[k] : 0.f;
-        const float r = in && has_rev ? rv[k] : 0.f;
-        float p = (f * fc.x) * (r * fc.y) * fc.z;
-        p = fminf(p, 1.f);
-        p = (f > 0.f && r > 0.f) ? p : 0.f;
-        acc[k] = m == 0 ? p * p : acc[k] + p * p;
-      }
-    }
     float pv[LPT];
+    mbar_wait(full + s, ph);
+    const float* row = ring + (size_t)s * rowf + 3 + j0;  // 16-byte aligned
 #pragma unroll
-    for (int k = 0; k < LPT; ++k)
-      pv[k] = NM == 1 ? sqrtf(acc[k]) : sqrtf(acc[k] / (float)NM);
-
-    if constexpr (!TOPK) {
-      // the dense row through the warp's staging row: 32 consecutive
-      // floats a store
-      float* stgw = buf + warp * 32 * LPT;
-      store_lanes<LPT>(stgw + wl * LPT, pv);
-      __syncwarp();
-      float* orow = a.post + ((size_t)d * B + b) * W;
-      const int jw = 1 + warp * 32 * LPT;
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        const int j = jw + k * 32 + wl;
-        if (j < W) orow[j] = stgw[k * 32 + wl];
-      }
-      if (tid == 0) orow[0] = 0.f;
-    } else {
-      // this warp's candidates of diagonal d, compacted in lane order
-      float* cv = buf + par * 2 * nt * LPT + warp * 32 * LPT;
-      int* cl = reinterpret_cast<int*>(buf + par * 2 * nt * LPT + nt * LPT) +
-                warp * 32 * LPT;
-      int base = 0;
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        const bool c = j0 + k < W && pv[k] >= a.cutoff && pv[k] > 0.f;
-        const unsigned bal = __ballot_sync(FULL, c);
-        if (c) {
-          const int pos = base + __popc(bal & ((1u << wl) - 1u));
-          cv[pos] = pv[k];
-          cl[pos] = j0 + k;
-        }
-        base += __popc(bal);
-      }
-      if (wl == 0) cnt[par * MAX_WARPS + warp] = base;
+    for (int q = 0; q < LPT / 4; ++q) {
+      const float4 x = reinterpret_cast<const float4*>(row)[q];
+      pv[4 * q] = x.x;
+      pv[4 * q + 1] = x.y;
+      pv[4 * q + 2] = x.z;
+      pv[4 * q + 3] = x.w;
     }
+    mbar_arrive(empty + s);  // each lane after its own reads
+    s = s + 1 == R ? 0 : s + 1;
+    if (s == 0) ph ^= 1u;
 
     // MWT accuracy DP (tie order diag >= left >= up)
     float sn[LPT], nn[LPT];
 #pragma unroll
     for (int k = 0; k < LPT; ++k) {
       const int j = j0 + k;
+      const float p = j < W ? pv[k] : 0.f;  // past W the row holds junk
       const float left = k ? s1[k - 1] : l1;
-      const float pd = pv[k] + (k ? s2[k - 1] : l2);
+      const float pd = p + (k ? s2[k - 1] : l2);
       const float up = s1[k];
       const bool take_d = pd >= left && pd >= up;
       const bool take_l = left >= up;
@@ -442,10 +397,14 @@ __global__ void __launch_bounds__(LPT == 4 ? 256 : 512)
         const float nlft = k ? n1[k - 1] : nl1;
         nn[k] = boundary ? 0.f : (take_d ? nd : (take_l ? nlft : n1[k]));
       }
-      if (d == dterm && j == ly) {
-        sc = sn[k];
-        nbv = nn[k];
-      }
+    }
+    if (d == dterm) {
+#pragma unroll
+      for (int k = 0; k < LPT; ++k)
+        if (j0 + k == ly) {
+          sc = sn[k];
+          nbv = nn[k];
+        }
     }
 #pragma unroll
     for (int k = 0; k < LPT; ++k) {
@@ -458,17 +417,50 @@ __global__ void __launch_bounds__(LPT == 4 ? 256 : 512)
     }
     l2 = l1;
     nl2 = nl1;
-    if (wl == 31 && warp + 1 < nw)
-      edge[par * MAX_WARPS + warp + 1] = make_float2(sn[LPT - 1], nn[LPT - 1]);
-    st = st1;
+    if (G > 1) {
+      if (l == 31 && g + 1 < G)
+        edge[par * MAX_DP_WARPS + g + 1] =
+            make_float2(sn[LPT - 1], nn[LPT - 1]);
+      dp_sync(32 * G);
+    }
   }
-  if constexpr (TOPK) {
-    __syncthreads();
-    rank_and_store(D - 1);
-  }
-  if (tid == (ly >= 1 ? (ly - 1) / LPT : 0)) {
+  const int owner = ly >= 1 ? (ly - 1) / LPT : 0;  // thread of lane ly
+  if (g * 32 + l == owner) {
     a.score[b] = sc;
     if (WM) a.nb[b] = nbv;
+  }
+}
+
+// warps 0 .. G-1 run the DP, the rest produce posterior rows
+template <int NM, int LPT, bool TOPK, bool WM>
+__global__ void __launch_bounds__(512)
+    combine_kernel(const Args a, int G, int R) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int rowf = ring_row(G, LPT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)R * rowf);
+  uint64_t* empty = full + R;
+  float2* edge = reinterpret_cast<float2*>(empty + R);
+  float* cand_v = reinterpret_cast<float*>(edge + 2 * MAX_DP_WARPS);
+  int* cand_l = reinterpret_cast<int*>(cand_v + MAX_PRODUCERS * 32);
+  const int warp = threadIdx.x >> 5;
+  const int P = (int)(blockDim.x >> 5) - G;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 32 * G);
+    }
+    mbar_fence_init();
+  }
+  if (threadIdx.x < 2 * MAX_DP_WARPS)
+    edge[threadIdx.x] = make_float2(0.f, 0.f);
+  __syncthreads();
+  if (warp < G) {
+    mwt<LPT, WM>(a, warp, G, R, rowf, smem, full, empty, edge);
+  } else {
+    const int pw = warp - G;
+    produce<NM, TOPK>(a, pw, P, R, rowf, smem, full, empty,
+                      cand_v + pw * 32, cand_l + pw * 32);
   }
 }
 
@@ -481,25 +473,31 @@ int device_attr(cudaDeviceAttr attr) {
 
 template <int NM, int LPT, bool TOPK, bool WM>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int Lp = a.Lp;
-  const int nt = std::max(32, ((Lp + LPT - 1) / LPT + 31) / 32 * 32);
-  // the ring's depth: two blocks an SM if 3 stages fit so, else one
-  const int fixed = make_layout(Lp, NM, LPT, nt, TOPK, 0).floats * 4;
-  const int stage = make_layout(Lp, NM, LPT, nt, TOPK, 1).floats * 4 - fixed;
+  const int G = std::max(1, (a.Lp + 32 * LPT - 1) / (32 * LPT));
+  // the ring's depth: two blocks an SM where they fit, else one
   const int per_sm = device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
   const int reserved = device_attr(cudaDevAttrReservedSharedMemoryPerBlock);
   const int optin = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
-  int S = std::min(MAX_STAGES, (per_sm / 2 - reserved - fixed) / stage);
-  if (S < 3) S = std::min(MAX_STAGES, (optin - fixed) / stage);
-  if (S < 3) S = 0;  // no ring: direct loads
-  const size_t smem = (size_t)make_layout(Lp, NM, LPT, nt, TOPK, S).floats * 4;
+  auto depth = [&](int budget) {
+    int R = MAX_RING;
+    while (R > 2 && smem_bytes(G, LPT, R) > (size_t)budget) --R;
+    return R;
+  };
+  int R = depth(per_sm / 2 - reserved);
+  if (smem_bytes(G, LPT, R) > (size_t)(per_sm / 2 - reserved))
+    R = depth(optin);
+  // no more producers than ring rows: a producer then waits only for the
+  // row of the diagonal R before its own, and an mbarrier's phase parity
+  // never aliases (it would if the DP could be two uses of a row behind)
+  const int P = std::min(G == 1 ? MAX_PRODUCERS - 1 : MAX_PRODUCERS, R);
+  const size_t smem = smem_bytes(G, LPT, R);
   auto kern = combine_kernel<NM, LPT, TOPK, WM>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kern<<<a.B, nt, smem, stream>>>(a, S);
+  kern<<<a.B, 32 * (G + P), smem, stream>>>(a, G, R);
   return cudaGetLastError();
 }
 
@@ -516,9 +514,10 @@ cudaError_t launch_mode(const Args& a, bool with_matches,
 template <int NM>
 cudaError_t launch_lpt(const Args& a, bool with_matches,
                        cudaStream_t stream) {
-  if (a.Lp <= 1024) return launch_mode<NM, 2>(a, with_matches, stream);
-  if (a.Lp <= 4096) return launch_mode<NM, 8>(a, with_matches, stream);
-  return launch_mode<NM, 16>(a, with_matches, stream);
+  // at most MAX_DP_WARPS DP warps
+  if (a.Lp <= MAX_DP_WARPS * 32 * 16)
+    return launch_mode<NM, 16>(a, with_matches, stream);
+  return launch_mode<NM, 32>(a, with_matches, stream);
 }
 
 }  // namespace
