@@ -17,7 +17,9 @@
 // hmm5 and local average the forward and reverse totals, partition takes
 // the forward one.  p is clamped to 1, the models combine by RMS, and the
 // MWT step breaks ties diag >= left >= up.  Built with --fmad=false, so
-// every product and sum rounds as the plain version's.
+// every product and sum rounds as the plain version's; the RMS's division
+// and square root round as the plain version's too, through branch-free
+// sequences (`div_models`, `sqrt_rn`).
 //
 // What bounds it on the H100: bytes.  Each cell of the 2 * nm input
 // planes is read once and the dense plane written once (3.77 GB, 1.13 ms
@@ -34,13 +36,14 @@
 // - P producer warps (7 at Lp <= 512, else 8) take whole diagonals in
 //   turn (warp w: d = w, w + P, ...).  The 32 lanes of a warp stride over
 //   the row, so every load and store covers consecutive addresses, and a
-//   warp has 8 lanes' worth of the 2 * nm rows in flight at once: across
-//   the producers, the loads of up to P diagonals are in flight while the
-//   DP works on an earlier one.  A warp computes its diagonal's scale
-//   factors itself (lane m for model m, the scales loaded one turn ahead,
-//   shuffled to the warp), writes the posterior row into a ring of R rows
-//   in shared memory and, in the dense mode, straight to the output
-//   plane.
+//   lane has 16 lanes' worth of the 2 * nm rows in flight at once (8 in
+//   the top-k mode): up to Lp = 512 a diagonal costs a warp one round
+//   trip to device memory, and across the producers the loads of up to P
+//   diagonals are in flight while the DP works on an earlier one.  A warp
+//   computes its diagonal's scale factors itself (lane m for model m, the
+//   scales loaded one turn ahead, shuffled to the warp), writes the
+//   posterior row into a ring of R rows in shared memory and, in the dense
+//   mode, straight to the output plane.
 // - G DP warps (one per 32 * LPT lanes; LPT = 16 up to Lp = 4,096, else
 //   32) run the MWT DP over the ring's rows in diagonal order, LPT
 //   contiguous lanes a thread: the j-1 neighbour is a register inside a
@@ -52,7 +55,8 @@
 // (the producer's 32 lanes arrive after writing it) and `empty` (the DP
 // lanes arrive after reading it), so a producer runs up to R diagonals
 // ahead of the DP and waits only when the ring is full.  R (2 to 16 rows)
-// is chosen at launch so that two blocks fit an SM where they can.
+// is chosen at launch so that two blocks fit an SM where they can, and a
+// block has no more producers than ring rows.
 //
 // Alignment.  A row of W = Lp + 1 floats starts on a 4-byte boundary
 // only, so every global access is a plain 4-byte load or store, never a
@@ -84,13 +88,51 @@ constexpr int PARTITION = 2;
 constexpr int MAX_DP_WARPS = 8;
 constexpr int MAX_PRODUCERS = 8;
 constexpr int MAX_RING = 16;
-constexpr int UNROLL = 8;  // a producer lane's lanes in flight
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float pow2i(float e) {
   // exact 2**e for integer-valued e, clamped to the normal range
   int ei = (int)fminf(fmaxf(e, -126.f), 127.f);
   return __int_as_float((ei + 127) << 23);
+}
+
+// x / n for 0 <= x <= n, rounded as the division is, without a branch:
+// x * 0.5 is x / 2 exactly, and one FMA correction of x * RN(1/3) gives
+// RN(x / 3) for every float in [0, 3] (checked against the division for
+// all of them)
+template <int N>
+__device__ __forceinline__ float div_models(float x) {
+  if constexpr (N == 1) return x;
+  if constexpr (N == 2) return x * 0.5f;
+  const float r3 = __int_as_float(0x3eaaaaab);  // RN(1/3)
+  const float q = x * r3;
+  return fmaf(fmaf(-3.f, q, x), r3, q);
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float y;
+  asm("rsqrt.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// sqrt(x) rounded to nearest for 0 <= x < 4, without a branch (the
+// library's sqrtf branches to a slow path for 0 and subnormals, which
+// serialises a warp's cells).  One Newton step from the approximate
+// reciprocal root lands within an ulp; the sign of x - s * s' (exact in
+// an FMA) for the neighbours s' of s then picks the rounded root.
+// Inputs below 2^-64 are scaled by 2^64 first, so the residuals stay
+// representable.  Checked against sqrtf for every float in [0, 4).
+__device__ __forceinline__ float sqrt_rn(float x) {
+  const bool tiny = x < 0x1p-64f;
+  const float xs = tiny ? x * 0x1p64f : x;
+  const float y = rsqrt_approx(xs);
+  float s = xs * y;
+  s = fmaf(fmaf(-s, s, xs), 0.5f * y, s);
+  const float su = __int_as_float(__float_as_int(s) + 1);
+  const float sd = __int_as_float(__float_as_int(s) - 1);
+  s = fmaf(-s, su, xs) > 0.f ? su : (fmaf(-sd, s, xs) <= 0.f ? sd : s);
+  s = tiny ? s * 0x1p-32f : s;
+  return xs == 0.f ? 0.f : s;
 }
 
 // the diagonal's split power-of-two factors of one model: pa, pb, c
@@ -214,6 +256,9 @@ __device__ void select_topk(const float* row, int W, int k, float cutoff,
 }
 
 // Producer warp pw of P: the posterior rows of diagonals pw, pw + P, ...
+// A lane has UNROLL lanes' rows in flight: 16 (all of a row up to Lp =
+// 512, one round trip a diagonal) in the dense mode, 8 in the top-k mode,
+// whose candidate list would otherwise spill.
 template <int NM, bool TOPK>
 __device__ void produce(const Args& a, int pw, int P, int R, int rowf,
                         float* ring, uint64_t* full, uint64_t* empty,
@@ -221,6 +266,7 @@ __device__ void produce(const Args& a, int pw, int P, int R, int rowf,
   const int l = threadIdx.x & 31;
   const int Lp = a.Lp, B = a.B, W = Lp + 1, D = 2 * Lp + 1;
   const int b = blockIdx.x;
+  constexpr int UNROLL = TOPK ? 8 : 16;
   // lane m < NM: model m's total, and its scales one turn ahead
   float l2t = 0.f, sf = 0.f, sr = 0.f;
   if (l < NM) {
@@ -285,7 +331,7 @@ __device__ void produce(const Args& a, int pw, int P, int R, int rowf,
           p = (f > 0.f && r > 0.f) ? p : 0.f;
           acc = m == 0 ? p * p : acc + p * p;
         }
-        const float post = NM == 1 ? sqrtf(acc) : sqrtf(acc / (float)NM);
+        const float post = sqrt_rn(div_models<NM>(acc));
         if (j < W) {
           row[j] = post;
           if constexpr (!TOPK) out[j] = post;
