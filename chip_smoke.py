@@ -10,8 +10,10 @@ Phases (any failure exits non-zero):
     totals; dense combine; the fused top-k against `topk_skew` of the
     kernel's own dense plane; MWT match counts.  The sweep's scales must
     equal the plain version's in every row.  Then each kernel's time at
-    the main path's shapes beside its plain version's and its bound, and
-    the sweep's time for each single-model set;
+    the main path's shapes beside its plain version's and its bound
+    (combine in each mode: dense, with match counts, top-k 16, and dense
+    again at the family's last batch size), and the sweep's time for
+    each single-model set;
  4. the main path: a seeded twilight-zone family (N=48, 330-470
     residues) through `align_family(config="pnp")` on the card, with
     the kernels' launch counts, per-stage wall clock and peak memory;
@@ -302,16 +304,12 @@ def main() -> None:
                                                tabs_f, models=models), 3),
         ),
     }
-
-    def time_combine(f_, r_, lx_, ly_, kw):
-        return (
+    for name, (f_, r_, lx_, ly_, kw) in comb_modes.items():
+        timing[name] = (
             cuda_ms(lambda: wk.combine(f_, r_, lx_, ly_, models, **kw), 7),
             cuda_ms(lambda: wk.combine_reference(f_, r_, lx_, ly_, models,
                                                  **kw), 3),
         )
-
-    for name, args in comb_modes.items():
-        timing[name] = time_combine(*args)
 
     def bound(nbytes, ops):
         tb, to = nbytes / CARD_BYTES * 1e3, ops / CARD_F32_OPS * 1e3
@@ -342,7 +340,7 @@ def main() -> None:
     rec["sweep_single_ms"] = single
     print(f"[timing] mix Lp={lp} B={b} (combine_b104: B={b_last}): "
           + json.dumps(rec), flush=True)
-    del fk, rk, fk2, rk2, comb_modes, args, X2, Y2, LX2, LY2
+    del fk, rk, fk2, rk2, comb_modes, f_, r_, X2, Y2, LX2, LY2
 
     # ---- 4. the main path --------------------------------------------------
     records = synthetic_family(48, 330, 470, sub=0.5, indel=0.1, seed=48)
