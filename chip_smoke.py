@@ -20,7 +20,28 @@ Phases (any failure exits non-zero):
     then one torch.profiler window around the family's posterior tensor
     (the five device operations with the most time, the device's idle
     share), and the consistency tensor rebuilt with the plain versions
-    on the card must agree with the kernels' tensor.
+    on the card must agree with the kernels' tensor;
+ 5. [qp]: the realigner's qp posterior (`_qpx_combined_skew`: the qpx
+    hmm5 posterior in plain torch, the partition half through the sweep
+    kernel) on the card against the CPU plain version at Lp=128/B=8
+    (atol 2e-4); then at the smoke family's qp shape (Lp=512, its batch
+    size) the times of the qpx forward+backward, of the two partition
+    sweeps and of the whole qp batch, its peak bytes against the batch
+    budget of 80 bytes per (pair, cell), the qpx time at B=32 beside
+    B=256 and one profiler window around a qpx pass (Lp=128, B=256);
+ 6. [pipeline]: `run_pipeline` (the `cli align` path) on the smoke family
+    on the card: decisions, stage marks, launches, hash, peak bytes; no
+    crash fallback, no block error, rows degap to the inputs;
+ 7. [realigner]: `align_family(config="quickprobs")` on the smoke family
+    on the card (per-stage seconds, engines, hash, peak bytes), unless
+    phase 6 already took the whole-family realign, whose numbers it then
+    prints; the consistency must run on the device;
+ 8. [pipeline-cpu]: `run_pipeline` on a small seeded family on the card
+    and on the CPU, as classified and with classifier 3 forced to RIR
+    (blocks realigned on the card): equal decisions, both hashes
+    printed; then a two-sequence realign (the sparse qp route).
+Each path is driven with the launch counts set to 0 just before it and
+read just after; a path that launched none of its kernels fails.
 Before the last line come the kernels' JSON record and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.
 """
@@ -134,6 +155,26 @@ def profiled(fn):
     return out, rec
 
 
+def ops_per_diagonal(fn, lp: int) -> float:
+    """Non-view aten ops that fn() dispatches, over its 2*lp+1 diagonals
+    (each a device launch on the card, but for a few host-side scalars)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ret = func._schema.returns
+            if not (ret and ret[0].alias_info is not None
+                    and not ret[0].alias_info.is_write):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n / (2 * lp + 1)
+
+
 def main() -> None:
     try:
         import torch
@@ -144,8 +185,11 @@ def main() -> None:
     try:
         from mlprobs_tpu_torch.align import aligner, pairwise
         from mlprobs_tpu_torch.core.alphabet import degap, encode
+        from mlprobs_tpu_torch.models import forests
+        from mlprobs_tpu_torch.ops import qpx
         from mlprobs_tpu_torch.ops.kernels import build
         from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
+        from mlprobs_tpu_torch.pipeline.driver import run_pipeline
         from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
         from mlprobs_tpu_torch.utils.synth import synthetic_family
     except ImportError as e:
@@ -405,6 +449,191 @@ def main() -> None:
     print("[tensor] " + json.dumps(rec), flush=True)
     if e_both > TOL["post"] or e_edge > TOL["post"] or e_dist > 1e-5:
         fail(f"consistency tensor: kernels disagree with plain: {rec}")
+    del t_k, t_p, both, one
+
+    # ---- 5. [qp]: the realigner's posterior batch ---------------------------
+    qtf, qtr = pairwise._wf_tables("qp", None, dev)
+    qtf_c, qtr_c = pairwise._wf_tables("qp", None, "cpu")
+    X, Y, LX, LY = batch(128, 8, seed=128)
+    cpu_args = [t.cpu() for t in (X, Y, LX, LY)]
+    p5 = pairwise._qpx_params(dev)
+    ph_k = qpx.hmm5_posterior_qpx(X, Y, LX, LY, *p5)
+    ph_c = qpx.hmm5_posterior_qpx(*cpu_args, *pairwise._qpx_params(
+        torch.device("cpu")))
+    post_k = pairwise._qpx_combined_skew(X, Y, LX, LY, qtf, qtr)
+    post_c = pairwise._qpx_combined_skew(*cpu_args, qtf_c, qtr_c)
+    qp_err = float((post_k.cpu() - post_c).abs().max())
+    qp_rec = {"lp": 128, "b": 8, "qp_post_err": qp_err,
+              "hmm5_qpx_err": float((ph_k.cpu() - ph_c).abs().max())}
+    print("[qp] card vs cpu: " + json.dumps(qp_rec), flush=True)
+    if qp_err > TOL["post"]:
+        fail(f"qp posterior on the card disagrees with the CPU: {qp_rec}")
+    del ph_k, ph_c, post_k, post_c
+
+    lp = 512
+    bq = pairwise._wf_batch_size(lp, dev)
+    X, Y, LX, LY = batch(lp, bq, seed=11)
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_batch = cuda_ms(lambda: pairwise._qpx_combined_skew(
+        X, Y, LX, LY, qtf, qtr), 1)
+    qp_peak = torch.cuda.max_memory_allocated() - base_bytes
+    t_fb = cuda_ms(lambda: qpx.hmm5_fb_qpx(X, Y, LX, LY, *p5), 1)
+    t_sw = cuda_ms(lambda: wk.sweeps(X, Y, LX, LY, qtf, qtr,
+                                     ("partition",)), 3)
+    Xs, Ys, LXs, LYs = (t[:32].contiguous() for t in (X, Y, LX, LY))
+    t_fb32 = cuda_ms(lambda: qpx.hmm5_fb_qpx(Xs, Ys, LXs, LYs, *p5), 1)
+    del Xs, Ys, LXs, LYs
+    per_cell = qp_peak / (bq * lp * lp)
+    qp_rec = {"lp": lp, "b": bq, "qpx_fb_ms": t_fb,
+              "partition_sweeps_ms": t_sw, "qp_batch_ms": t_batch,
+              "qpx_fb_ms_b32": t_fb32, "peak_bytes": qp_peak,
+              "peak_bytes_per_pair_cell": per_cell, "budget_per_cell": 80}
+    print("[qp] timing: " + json.dumps(qp_rec), flush=True)
+    if per_cell > 80:
+        fail(f"a qp batch outgrows the batch budget: {qp_rec}")
+    Xp, Yp, LXp, LYp = batch(128, 256, seed=12)
+    _, prof = profiled(lambda: qpx.hmm5_fb_qpx(Xp, Yp, LXp, LYp, *p5))
+    small_batch = batch(64, 4, seed=13)
+    prof["ops_per_diagonal_pair"] = ops_per_diagonal(
+        lambda: qpx.hmm5_fb_qpx(*small_batch, *p5), 64)
+    print("[qp] profile of one qpx forward+backward (Lp=128, B=256): "
+          + json.dumps(prof), flush=True)
+    del X, Y, LX, LY, Xp, Yp, LXp, LYp
+
+    def valid_msa(msa, recs):
+        rows = dict(msa.to_records())
+        return (msa.num_seqs == len(recs)
+                and len({len(r) for r in rows.values()}) == 1
+                and all(rows.get(h, "").replace("-", "") == q
+                        for h, q in recs))
+
+    def drive(fn):
+        """(result, wall s, launches, peak bytes, stage timers) of one
+        path, the launch counts set to 0 just before it."""
+        STATS.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        launched = {"sweep": wk.sweep.launches,
+                    "combine": wk.combine.launches}
+        timers = {k[5:]: v for k, v in STATS.to_dict().items()
+                  if k.startswith("time.")}
+        return out, wall_, launched, torch.cuda.max_memory_allocated(), \
+            timers
+
+    # ---- 6. [pipeline]: cli align's path on the smoke family -------------
+    (pmsa, prep), pwall, plaunch, ppeak, ptimers = drive(
+        lambda: run_pipeline(records, device="cuda"))
+    decisions = {k: getattr(prep, k) for k in (
+        "strategy", "realign_mode", "min_length_class", "num_realign_blocks",
+        "blocks_realigned", "blocks_accepted", "whole_family_realign",
+        "crash_fallback", "device_suspect")}
+    print("[pipeline] " + json.dumps({
+        "family": "synthetic N=48 L=330-470 sub=0.5 indel=0.1 seed=48",
+        "wall_s": pwall, "decisions": decisions, "marks_s": prep.timings,
+        "factor": prep.factor, "avg_pid": prep.avg_pid,
+        "stage_timers_s": ptimers, "launches": plaunch,
+        "peak_device_bytes": ppeak, "engines": prep.engines,
+        "final_hash": prep.final_hash, "columns": pmsa.length,
+        "block_errors": prep.block_errors, "error": prep.error,
+    }, default=float), flush=True)
+    if prep.crash_fallback or prep.block_errors:
+        fail(f"the pipeline fell back or lost a block: {prep.error} "
+             f"{prep.block_errors}")
+    if not valid_msa(pmsa, records):
+        fail("the pipeline's MSA does not degap to its input records")
+    if min(plaunch.values()) < 1:
+        fail(f"the pipeline did not run every kernel: {plaunch}")
+
+    # ---- 7. [realigner]: align_family(config="quickprobs") ---------------
+    if prep.whole_family_realign:
+        qstages = {k: v for k, v in ptimers.items() if k.startswith("qp_")}
+        qrec = {"source": "phase [pipeline]: whole-family realign",
+                "stages_s": qstages, "engines": prep.engines,
+                "content_hash": prep.final_hash,
+                "peak_device_bytes": ppeak, "launches": plaunch}
+        qengine = prep.engines.get("consistency_engine")
+    else:
+        qreport: dict = {}
+        qmsa, qwall, qlaunch, qpeak, qtimers = drive(
+            lambda: aligner.align_family(records, config="quickprobs",
+                                         report=qreport, device="cuda"))
+        qrec = {"wall_s": qwall,
+                "stages_s": {k: v for k, v in qtimers.items()
+                             if k.startswith("qp_")},
+                "engines": qreport, "content_hash": qmsa.content_hash(),
+                "peak_device_bytes": qpeak, "launches": qlaunch}
+        qengine = qreport.get("consistency_engine")
+        if not valid_msa(qmsa, records):
+            fail("the realigner's MSA does not degap to its input records")
+        if qlaunch["sweep"] < 1:
+            fail(f"the realigner did not run the sweep kernel: {qlaunch}")
+    print("[realigner] " + json.dumps(qrec, default=float), flush=True)
+    if qengine != "device":
+        fail(f"the realigner's consistency left the device: {qrec}")
+
+    # ---- 8. [pipeline-cpu]: the same decisions on the card and the CPU ---
+    # The small family takes the whole-family realign, as the smoke family
+    # does; its second run forces classifier 3 to RIR (as the CPU tests
+    # do) so that the block realign runs on the card too.
+    small = synthetic_family(6, 40, 90, sub=0.2, indel=0.05, seed=5)
+    keys = ("strategy", "realign_mode", "min_length_class",
+            "num_realign_blocks", "blocks_realigned", "blocks_accepted",
+            "whole_family_realign", "crash_fallback")
+    real_rs = forests.classify_realign_strategy
+    for case in ("as-classified", "rir-forced"):
+        if case == "rir-forced":
+            forests.classify_realign_strategy = lambda *a: 1
+        try:
+            (cmsa, crep), cwall, claunch, _, _ = drive(
+                lambda: run_pipeline(small, device="cuda"))
+            t0 = time.perf_counter()
+            hmsa, hrep = run_pipeline(small, device="cpu")
+            hwall = time.perf_counter() - t0
+        finally:
+            forests.classify_realign_strategy = real_rs
+        dec_c = {k: getattr(crep, k) for k in keys}
+        dec_h = {k: getattr(hrep, k) for k in keys}
+        print("[pipeline-cpu] " + json.dumps({
+            "family": "synthetic N=6 L=40-90 sub=0.2 indel=0.05 seed=5",
+            "case": case,
+            "cuda": {"wall_s": cwall, "hash": crep.final_hash,
+                     "launches": claunch, "decisions": dec_c,
+                     "block_errors": crep.block_errors},
+            "cpu": {"wall_s": hwall, "hash": hrep.final_hash,
+                    "decisions": dec_h},
+            "hashes_equal": crep.final_hash == hrep.final_hash,
+        }), flush=True)
+        if dec_c != dec_h:
+            fail(f"decisions differ between the card and the CPU: "
+                 f"{dec_c} vs {dec_h}")
+        if crep.crash_fallback or crep.block_errors:
+            fail(f"the small family fell back or lost a block: "
+                 f"{crep.error} {crep.block_errors}")
+        if not (valid_msa(cmsa, small) and valid_msa(hmsa, small)):
+            fail("a small-family MSA does not degap to its input records")
+        if min(claunch.values()) < 1:
+            fail(f"the small family's pipeline did not run every kernel: "
+                 f"{claunch}")
+    # a two-sequence block: the realigner's sparse (top-k) qp route
+    pair = small[:2]
+    tmsa, _, tlaunch, _, _ = drive(
+        lambda: aligner.align_family(pair, config="quickprobs",
+                                     device="cuda"))
+    tcpu = aligner.align_family(pair, config="quickprobs", device="cpu")
+    print("[pipeline-cpu] " + json.dumps({
+        "case": "two-sequence realign", "launches": tlaunch,
+        "cuda_hash": tmsa.content_hash(), "cpu_hash": tcpu.content_hash(),
+        "hashes_equal": tmsa.content_hash() == tcpu.content_hash(),
+    }), flush=True)
+    if not valid_msa(tmsa, pair) or tlaunch["sweep"] < 1:
+        fail(f"the two-sequence realign failed on the card: {tlaunch}")
 
     kernels = []
     for name, src, replaces in (
@@ -415,7 +644,9 @@ def main() -> None:
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": plaunch[name],
+            "launches_by_path": {"base": launches[name],
+                                 "pipeline": plaunch[name]},
             "max_abs_err": worst[name], "ms": timing[name][0],
             "plain_ms": timing[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,

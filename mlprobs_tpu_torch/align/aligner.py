@@ -6,6 +6,12 @@ identity-dependent posterior model mixing, UPGMA guide tree, two rounds
 of consistency, weighted profile-profile progressive merge and adaptive
 iterative refinement.  The posteriors run on the card's kernels; with
 device="cpu", on their plain PyTorch versions.
+
+`config="quickprobs"` is the realignment aligner used for column blocks
+(the role QuickProbs plays in the reference): the QuickProbs-style
+posterior (the qpx hmm5 posterior RMS-combined with the sweep's partition
+posterior, PosteriorStage.cpp:123-196), weighted consistency, weighted
+construction and a fixed small refinement budget.
 """
 from __future__ import annotations
 
@@ -15,8 +21,10 @@ import numpy as np
 import torch
 
 from mlprobs_tpu_torch.align import consistency as cons
-from mlprobs_tpu_torch.align import pairwise, progressive
+from mlprobs_tpu_torch.align import pairwise, progressive, refine_qp
 from mlprobs_tpu_torch.align import tree as treelib
+from mlprobs_tpu_torch.align import tree_extra
+from mlprobs_tpu_torch.core.config import DEFAULT as _CFG
 from mlprobs_tpu_torch.core.msa import MSA
 from mlprobs_tpu_torch.models import params as mp
 from mlprobs_tpu_torch.utils import device as devlib
@@ -143,30 +151,30 @@ def align_family(
     stats: FamilyStats | None = None,
     strategy: int = 0,
     report: dict | None = None,
+    observer=None,
     keep: dict | None = None,
     device="cuda",
 ) -> MSA:
     """Align one family of unaligned sequences; returns the final MSA.
 
-    Only the progressive pnp path (`config="pnp"`, `strategy=0`) is
-    ported.  `report`, when given, records which engines ran and every
-    downgrade: the consistency engine ("device" or "host") and, when the
-    device tensor was not used, `report["consistency_downgrade"]`.
+    The progressive pnp path (`config="pnp"`, `strategy=0`) and the
+    QuickProbs-role realigner (`config="quickprobs"`) are ported; the
+    non-progressive path (`strategy=1`) is not.  `report`, when given,
+    records which engines ran and every downgrade: the consistency
+    engine ("device" or "host") and, when the device tensor was not used
+    for the relaxation, `report["consistency_downgrade"]`.  `observer`
+    is the realigner's refinement iteration hook (IRefinementObserver /
+    ExtendedMSA::iterationDone autosave role).
     """
-    if config == "quickprobs":
-        raise NotImplementedError(
-            "config='quickprobs' is not ported yet (ROADMAP queue 1: the "
-            "quickprobs/qpx realigner)"
-        )
-    if config != "pnp":
+    if config not in ("pnp", "quickprobs"):
         raise ValueError(config)
-    if strategy == 1:
+    if strategy not in (0, 1):
+        raise ValueError(strategy)
+    if config == "pnp" and strategy == 1:
         raise NotImplementedError(
             "strategy=1 is not ported yet (ROADMAP queue 1: the NP path, "
             "graph.py and refine_np.py)"
         )
-    if strategy != 0:
-        raise ValueError(strategy)
     device = devlib.resolve(device)
     if report is None:
         report = {}
@@ -179,6 +187,8 @@ def align_family(
     n = len(seqs)
     if n == 1:
         return msa
+    if config == "quickprobs":
+        return _align_quickprobs(msa, seqs, report, observer, keep, device)
     rng = GlibcRand(1)
 
     if stats is None:
@@ -230,4 +240,129 @@ def align_family(
             root, msa, posts, pid=pid, rng=rng, base_reps=100
         )
     STATS.log_device_memory("pnp")
+    return out
+
+
+# guide-tree builders of the realigner (ExtendedMSA.cpp:86-99)
+_QP_TREES = {
+    "slink": lambda dist, n: tree_extra.slink(dist),
+    "chained": lambda dist, n: tree_extra.chained(n),
+    "upgma": lambda dist, n: treelib.upgma(dist, variance_id=1),
+}
+# the largest combined distance per unit of the selectivity function
+_FUNC_BOUND = {"max": 1.0, "min": 1.0, "sum": 2.0, "avg": 1.5}
+
+
+def _align_quickprobs(msa, seqs, report, observer, keep, device) -> MSA:
+    """QuickProbs pipeline (ExtendedMSA.cpp:66-184 with the defaults of
+    Configuration.cpp:84-135): guide tree by kind, selectivity distance
+    preparation + normalization, saturated weights, weighted relaxation
+    with selfweight 3, weighted construction, refinement by type.
+
+    The relaxation runs on the device tensor when the deterministic
+    filter accepts every z; the stochastic filter, a family over the
+    tensor's budget (the JAX package's sector path is not ported) and a
+    device OOM take the host weighted relaxation, and the report says
+    which."""
+    rcfg = _CFG.realigner
+    n = len(seqs)
+    lengths = [len(s) for s in seqs]
+    rng = GlibcRand(1)
+    report["mode"] = "qp"
+    tensor = None
+    try:
+        with STATS.timer("qp_posteriors"):
+            tensor = pairwise.device_posterior_tensor(
+                seqs, "qp", None, report=report, device=device
+            )
+    except torch.cuda.OutOfMemoryError as e:
+        report["consistency_downgrade"] = f"oom_tensor: {e}"[:160]
+    report["consistency_engine"] = "device" if tensor is not None else "host"
+    if tensor is not None:
+        posts, dist = None, tensor.dist
+    else:
+        with STATS.timer("qp_posteriors"):
+            posts, dist = posterior_stage(seqs, "qp", None, device)
+    root = _QP_TREES[rcfg.tree_kind](dist, n)
+    weights_f = cons.saturate_weights(
+        treelib.qp_weights(root, n), rcfg.saturation
+    )
+    c_reps = (rcfg.consistency_reps if n <= rcfg.large_family_threshold
+              else rcfg.consistency_reps_large)
+    cd = cons.selectivity_distances(
+        rcfg.selectivity_mode, dist,
+        subtree=tree_extra.subtree_distances(root, n),
+        selectivity=rcfg.selectivity,
+        normalization=rcfg.selectivity_normalization,
+    )
+    # accept-all shortcut: the deterministic filter passes every z when
+    # no combined distance can exceed the selectivity bound
+    accept_all = (
+        rcfg.selectivity_filter == "deterministic"
+        and cd.max() * _FUNC_BOUND[rcfg.selectivity_function]
+        <= rcfg.selectivity
+    )
+
+    def host_weighted_relax(posts_csr):
+        return cons.relax_sparse_weighted(
+            posts_csr, lengths, weights_f, reps=c_reps,
+            selfweight=rcfg.selfweight, selectivity=rcfg.selectivity,
+            distances=None if accept_all else cd,
+            final_cutoff=rcfg.consistency_final_cutoff,
+        )
+
+    with STATS.timer("qp_consistency"):
+        if tensor is not None and accept_all:
+            try:
+                posts = tensor.relax_and_extract(
+                    weights=weights_f, reps=c_reps,
+                    selfweight=rcfg.selfweight,
+                    selectivity=rcfg.selectivity,
+                    final_cutoff=rcfg.consistency_final_cutoff,
+                )
+            except torch.cuda.OutOfMemoryError as e:
+                report["consistency_downgrade"] = f"oom_relax: {e}"[:160]
+                report["consistency_engine"] = "host"
+                posts = host_weighted_relax(tensor.extract_csrs())
+        else:
+            if posts is None:
+                # stochastic-filter regime: host relaxation of the
+                # already-built device tensor's posteriors
+                report["consistency_downgrade"] = "stochastic_filter"
+                report["consistency_engine"] = "host"
+                posts = tensor.extract_csrs()
+            posts = host_weighted_relax(posts)
+    del tensor
+    if keep is not None:
+        keep["posts"] = posts
+    weights_c = cons.saturate_weights(
+        treelib.qp_weights(root, n), rcfg.final_saturation
+    )
+    # QuickProbs construction does NOT subtract the posterior cutoff:
+    # ConstructionStage::alignAlignments calls the parallel
+    # buildPosterior (ParallelProbabilisticModel.cpp:301-445), which
+    # plain-scatters w*v
+    with STATS.timer("qp_construction"):
+        out = progressive.process_tree(root, msa, posts, weights_c,
+                                       cutoff_sub=0.0)
+    iters = (rcfg.refinement_reps if n <= rcfg.refinement_threshold
+             else rcfg.refinement_reps_large)
+    accept = {"acceptance_length": rcfg.acceptance_length,
+              "acceptance_entropy": rcfg.acceptance_entropy,
+              "observer": observer}
+    with STATS.timer("qp_refinement"):
+        if rcfg.refinement_type == "random":
+            out = refine_qp.random_refinement(
+                out, posts, weights_c, rng, iters, **accept)
+        elif rcfg.refinement_type == "tree":
+            out = refine_qp.tree_refinement(
+                out, posts, weights_c, rng, iters, root, **accept)
+        else:
+            out = refine_qp.column_refinement(
+                out, posts, weights_c, iterations=iters,
+                max_depth=rcfg.max_depth,
+                column_fraction=rcfg.column_fraction,
+                ignore_terminal_gaps=rcfg.ignore_terminal_gaps,
+                num_seqs_total=n, **accept)
+    STATS.log_device_memory("quickprobs")
     return out

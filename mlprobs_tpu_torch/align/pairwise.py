@@ -11,9 +11,15 @@ Model selection per family identity class (pdoAlign, MSA.cpp:941-1010):
              local posteriors  sqrt((v1^2+v2^2+v3^2)/3)
   pid == 2 : local model only
   pid >= 3 : partition function only
+
+Mode "qp" is the QuickProbs-role realigner's posterior: the qpx hmm5
+posterior (ops/qpx.py, the reference's f32 log-space arithmetic) and the
+sweep kernel's partition posterior on the Vtml200 tables, filtered to
+[0.001, 1], RMS-combined (PosteriorStage.cpp:123-196).
 """
 from __future__ import annotations
 
+import functools
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -22,7 +28,7 @@ import torch
 from mlprobs_tpu_torch.core.config import DEFAULT as _CFG
 from mlprobs_tpu_torch.core.config import engine_budgets
 from mlprobs_tpu_torch.models import params as mp
-from mlprobs_tpu_torch.ops import wavefront
+from mlprobs_tpu_torch.ops import qpx, wavefront
 from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
 from mlprobs_tpu_torch.utils import device as devlib
 
@@ -143,6 +149,57 @@ def _wf_dense_fn(models: tuple[str, ...]):
     return run
 
 
+@functools.lru_cache(maxsize=4)
+def _qpx_params(device: torch.device) -> tuple:
+    """(init, trans, lmatch, lins) of the hmm5 model, log f32 on device."""
+    p5 = mp.hmm5_params()
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (p5.init, p5.trans, p5.lmatch, p5.lins))
+
+
+def _qpx_combined_skew(X, Y, LX, LY, tabs_f, tabs_r):
+    """(D, B, W) RMS-combined qp posterior with reference numerics: the
+    qpx hmm5 posterior and the partition posterior of the two sweeps.
+
+    The RMS runs in place on the partition plane, which keeps the batch's
+    peak at the sweeps' two planes, the hmm5 posterior and the plain
+    `posterior_skew`'s temporaries."""
+    ph = qpx.hmm5_posterior_qpx(X, Y, LX, LY, *_qpx_params(X.device))
+    fwd, rev = wk.sweeps(X, Y, LX, LY, tabs_f, tabs_r, ("partition",))
+    pp = wavefront.posterior_skew(fwd, rev, "partition")
+    del fwd, rev
+    # the reference drops partition posteriors outside [0.001, 1]
+    # before the RMS combine (PartitionFunction.cpp:264-270)
+    pp.masked_fill_(~((pp >= 0.001) & (pp <= 1.0)), 0.0)
+    pp.mul_(pp).add_(ph.mul_(ph))
+    del ph
+    return pp.mul_(0.5).sqrt_()
+
+
+def _qp_exact_fn(with_matches: bool):
+    """qp twin of _wf_fn: same (vals, lanes, score[, nb]) contract."""
+
+    def run(X, Y, LX, LY, tabs_f, tabs_r):
+        post = _qpx_combined_skew(X, Y, LX, LY, tabs_f, tabs_r)
+        vals, lanes = wavefront.topk_skew(post, TOPK, CUTOFF)
+        mw = wavefront.mwt_skew(post, LX, LY, with_matches=with_matches)
+        return (vals, lanes) + (mw if with_matches else (mw,))
+
+    return run
+
+
+def _qp_exact_dense_fn():
+    """qp twin of _wf_dense_fn: (dense grid plane, score)."""
+
+    def run(X, Y, LX, LY, tabs_f, tabs_r):
+        post = _qpx_combined_skew(X, Y, LX, LY, tabs_f, tabs_r)
+        score = wavefront.mwt_skew(post, LX, LY, with_matches=False)
+        dense = wavefront.unskew_posterior(post)
+        return torch.where(dense >= CUTOFF, dense, 0.0), score
+
+    return run
+
+
 def topk_diag_to_csr(vals: np.ndarray, lanes: np.ndarray, li: int, lj: int):
     """CSR posterior from one pair's per-diagonal top-k (D, K) arrays.
 
@@ -220,15 +277,26 @@ class DevicePosteriorTensor:
         """Host CSRs of the unrelaxed posteriors."""
         return self._extract(self.S)
 
-    def relax_and_extract(self, reps: int = 2) -> dict:
-        """`reps` baseMSA relaxation rounds on the device, host CSRs."""
+    def relax_and_extract(
+        self,
+        weights: np.ndarray | None = None,
+        selfweight: float = 3.0,
+        selectivity: float = 200.0,
+        reps: int = 2,
+        final_cutoff: float | None = None,
+    ) -> dict:
+        """`reps` relaxation rounds on the device, host CSRs: baseMSA's
+        without `weights`, QuickProbs' weighted accept-all with them."""
         from mlprobs_tpu_torch.align import consistency as cons
 
         n = self.S.shape[0]
         dev = self.S.device
         sc, zs, w = (torch.from_numpy(a).to(dev)
-                     for a in cons.dense_relax_coeffs(n))
-        S = cons.relax_dense_rounds(self.S, sc, zs, w, reps=reps)
+                     for a in cons.dense_relax_coeffs(
+                         n, weights, selfweight=selfweight,
+                         selectivity=selectivity))
+        S = cons.relax_dense_rounds(self.S, sc, zs, w, reps=reps,
+                                    final_cutoff=final_cutoff)
         return self._extract(S)
 
 
@@ -262,7 +330,8 @@ def device_posterior_tensor(
 
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
     tabs_f, tabs_r = _wf_tables(mode, leave_prob, device)
-    fn = _wf_dense_fn(_MODE_MODELS[mode])
+    fn = (_qp_exact_dense_fn() if mode == "qp"
+          else _wf_dense_fn(_MODE_MODELS[mode]))
     S = torch.zeros((n, n, lp, lp), dtype=torch.float32, device=device)
     dist = np.zeros((n, n))
     for chunk, X, Y, LX, LY in iter_pair_batches(
@@ -296,7 +365,8 @@ def all_pairs_posteriors(
     if pairs is None:
         pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
     tabs_f, tabs_r = _wf_tables(mode, leave_prob, device)
-    fn = _wf_fn(_MODE_MODELS[mode], with_matches)
+    fn = (_qp_exact_fn(with_matches) if mode == "qp"
+          else _wf_fn(_MODE_MODELS[mode], with_matches))
     for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device):
         out = [o.cpu().numpy() for o in fn(X, Y, LX, LY, tabs_f, tabs_r)]
         vals, lanes, score = out[:3]

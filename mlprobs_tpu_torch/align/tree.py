@@ -8,7 +8,8 @@ average when `varianceid == 0` and leaf-count-weighted average otherwise
 
 Sequence weights follow MSAGuideTree::getSeqsWeights
 (MSAGuideTree.cpp:272-298): leaf weight = sum of dist/order along the
-root path, quantised to int(100 * w).
+root path, quantised to int(100 * w).  The QuickProbs-role realigner
+takes `qp_weights`, the same sums unquantised and normalised to 1.
 """
 from __future__ import annotations
 
@@ -73,6 +74,48 @@ def upgma(distances: np.ndarray, variance_id: int = 1) -> TreeNode:
         slot_node[bj] = None
     root = slot_node[[s for s in range(n) if slot_node[s] is not None][0]]
     return root
+
+
+def leaves(node: TreeNode) -> list[int]:
+    if node.leaf:
+        return [node.idx]
+    return leaves(node.left) + leaves(node.right)
+
+
+def qp_weights(root: TreeNode, num_seqs: int) -> np.ndarray:
+    """QuickProbs sequence weights (GuideTree::calculateSeqsWeights,
+    GuideTree.cpp:114-153): w = sum(dist/order) along the root path —
+    WITHOUT the baseMSA `(int)(100*w)` truncation (commented out in the
+    reference) — normalized to sum 1; an all-zero tree degenerates to
+    uniform 1/numSeqs."""
+    if num_seqs == 1:
+        return np.array([1.0], dtype=np.float64)
+    order: dict[int, int] = {}
+
+    def count(node: TreeNode) -> int:
+        c = 1 if node.leaf else count(node.left) + count(node.right)
+        order[id(node)] = c
+        return c
+
+    count(root)
+    weights = np.zeros(num_seqs, dtype=np.float64)
+
+    def walk(node: TreeNode, acc: float):
+        acc = acc + (node.dist / order[id(node)] if order[id(node)] else 0.0)
+        if node.leaf:
+            weights[node.idx] = acc
+        else:
+            walk(node.left, acc)
+            walk(node.right, acc)
+
+    if not root.leaf:
+        walk(root.left, 0.0)
+        walk(root.right, 0.0)
+    # float32 accumulation order in the reference: sum as f32
+    wsum = float(np.float32(weights.astype(np.float32).sum()))
+    if wsum == 0.0:
+        return np.full(num_seqs, 1.0 / num_seqs)
+    return weights / wsum
 
 
 def clustalw_weights(root: TreeNode, num_seqs: int) -> np.ndarray:

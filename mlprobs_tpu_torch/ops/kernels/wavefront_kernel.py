@@ -201,10 +201,10 @@ def combine(fwd, rev, lx, ly, models=("hmm5",), with_matches=False,
 combine.launches = 0
 
 
-def posterior(X, Y, LX, LY, tabs_f, tabs_r, models, with_matches=False,
-              topk=0, cutoff=0.01):
-    """The posterior stage of one pair batch: reversed sweep (pre-emission
-    planes), forward sweep, combine.  Same outputs as `combine`."""
+def sweeps(X, Y, LX, LY, tabs_f, tabs_r, models):
+    """(fwd, rev): the reversed sweep (pre-emission planes, sequences
+    right-aligned at offsets Lp - L) and the forward sweep of one pair
+    batch, two launches."""
     b, lp = X.shape
     zero = torch.zeros((b,), dtype=torch.int32, device=X.device)
     rev = sweep(
@@ -214,6 +214,14 @@ def posterior(X, Y, LX, LY, tabs_f, tabs_r, models, with_matches=False,
     )
     fwd = sweep(X, Y, zero, zero, LX, LY, tabs_f, models=models,
                 emit_pre=False)
+    return fwd, rev
+
+
+def posterior(X, Y, LX, LY, tabs_f, tabs_r, models, with_matches=False,
+              topk=0, cutoff=0.01):
+    """The posterior stage of one pair batch: `sweeps`, then combine.
+    Same outputs as `combine`."""
+    fwd, rev = sweeps(X, Y, LX, LY, tabs_f, tabs_r, models)
     return combine(fwd, rev, LX, LY, models=models,
                    with_matches=with_matches, topk=topk, cutoff=cutoff)
 

@@ -26,6 +26,18 @@ from mlprobs_tpu_torch.core.alphabet import encode  # noqa: E402
 from mlprobs_tpu_torch.models import params as tmp  # noqa: E402
 from mlprobs_tpu_torch.utils.synth import synthetic_family  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the plain PyTorch loops: their tensors are
+    small, and parallel test workers with a thread pool each would
+    oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LEAVE = 0.170705
 
 

@@ -15,7 +15,20 @@ torch = pytest.importorskip("torch")
 from mlprobs_tpu_torch.align import aligner, pairwise  # noqa: E402
 from mlprobs_tpu_torch.ops.kernels import build  # noqa: E402
 from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk  # noqa: E402
-from mlprobs_tpu_torch.pipeline import cli  # noqa: E402
+from mlprobs_tpu_torch.pipeline import cli, driver, realign  # noqa: E402
+from mlprobs_tpu_torch.utils.synth import synthetic_family  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the plain PyTorch loops: their tensors are
+    small, and parallel test workers with a thread pool each would
+    oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "mlprobs_tpu_torch"
@@ -80,9 +93,16 @@ def _family():
             for k in range(3)]
 
 
+# a family that classifier 1 sends to the progressive strategy (RCR,
+# factor > 0), and one it sends to the non-progressive strategy
+PROGRESSIVE = (12, 10, 20, 0.3, 0.1, 4)
+NON_PROGRESSIVE = (16, 12, 24, 0.5, 0.1, 2)
+
+
 @pytest.mark.parametrize("entry", [
     "align_family", "family_viterbi_stats", "device_posterior_tensor",
-    "all_pairs_posteriors", "cli",
+    "all_pairs_posteriors", "cli", "align_family_quickprobs",
+    "run_pipeline", "cli_align",
 ])
 def test_entry_points_need_the_card_unless_asked_for_cpu(no_cuda, entry,
                                                          tmp_path):
@@ -98,27 +118,84 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(no_cuda, entry,
         "all_pairs_posteriors":
             lambda **kw: list(pairwise.all_pairs_posteriors(seqs, "mix",
                                                             **kw)),
+        "align_family_quickprobs":
+            lambda **kw: aligner.align_family(recs, config="quickprobs",
+                                              **kw),
+        "run_pipeline":
+            lambda **kw: driver.run_pipeline(
+                synthetic_family(*PROGRESSIVE), **kw),
     }
-    if entry == "cli":
+    if entry in ("cli", "cli_align"):
+        if entry == "cli_align":
+            recs = synthetic_family(*PROGRESSIVE)
+        args = ["base" if entry == "cli" else "align"]
         inp = tmp_path / "in.fa"
         inp.write_text("".join(f">{h}\n{s}\n" for h, s in recs))
         with pytest.raises(RuntimeError, match="cuda"):
-            cli.main(["base", str(inp), str(tmp_path / "out.fa")])
-        assert cli.main(["base", str(inp), str(tmp_path / "out.fa"),
-                         "--device", "cpu"]) == 0
-        assert (tmp_path / "out.fa").read_text().count(">") == 3
+            cli.main(args + [str(inp), str(tmp_path / "out.fa")])
+        assert cli.main(args + [str(inp), str(tmp_path / "out.fa"),
+                                "--device", "cpu"]) == 0
+        assert (tmp_path / "out.fa").read_text().count(">") == len(recs)
         return
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
     assert calls[entry](device="cpu") is not None
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
+    """The NP strategy raises, and run_pipeline lets it through: a
+    family that classifier 1 sends there does not quietly become a
+    whole-family QuickProbs alignment."""
     recs = _family()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aligner.align_family(recs, config="quickprobs", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         aligner.align_family(recs, strategy=1, device="cpu")
+
+    def no_fallback(*a, **kw):
+        raise AssertionError("run_pipeline took the fallback")
+
+    monkeypatch.setattr(driver, "_fallback_align", no_fallback)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        driver.run_pipeline(synthetic_family(*NON_PROGRESSIVE),
+                            device="cpu")
+
+
+def test_kernel_build_error_in_a_block_realign_propagates(monkeypatch):
+    """A block realign keeps its block only for what the reference's
+    ladder is for; a kernel that cannot be built leaves run_pipeline."""
+    from mlprobs_tpu_torch.models import forests
+
+    real = realign.align_family
+
+    def realigner_without_kernels(records, config="pnp", **kw):
+        if config == "quickprobs":
+            raise build.KernelBuildError("nvcc not found")
+        return real(records, config=config, **kw)
+
+    monkeypatch.setattr(forests, "classify_realign_strategy", lambda *a: 1)
+    monkeypatch.setattr(realign, "align_family", realigner_without_kernels)
+    recs = synthetic_family(6, 40, 90, 0.2, 0.05, 5)   # four RIR blocks
+    with pytest.raises(build.KernelBuildError):
+        driver.run_pipeline(recs, device="cpu")
+
+
+def test_block_errors_are_recorded(monkeypatch):
+    """What the ladder is for (here a device OOM) keeps the block and is
+    recorded in the report, never swallowed silently."""
+    from mlprobs_tpu_torch.models import forests
+
+    def oom(records, config="pnp", **kw):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (simulated)")
+
+    monkeypatch.setattr(forests, "classify_realign_strategy", lambda *a: 1)
+    monkeypatch.setattr(realign, "align_family", oom)
+    recs = synthetic_family(6, 40, 90, 0.2, 0.05, 5)
+    msa, rep = driver.run_pipeline(recs, device="cpu")
+    assert rep.blocks_realigned == rep.num_realign_blocks == 4
+    assert rep.blocks_accepted == 0 and not rep.crash_fallback
+    assert len(rep.block_errors) == 4
+    assert rep.block_errors[0].startswith("OutOfMemoryError: CUDA out of")
+    rows = dict(msa.to_records())
+    assert all(rows[h].replace("-", "") == s for h, s in recs)
 
 
 @pytest.fixture

@@ -26,6 +26,18 @@ from mlprobs_tpu_torch.align import pairwise as tpw  # noqa: E402
 from mlprobs_tpu_torch.ops import wavefront as twf  # noqa: E402
 from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as twk  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the plain PyTorch loops: their tensors are
+    small, and parallel test workers with a thread pool each would
+    oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODEL_SETS = {
     "mix": ("hmm5", "partition", "local"),
     "qp": ("hmm5", "partition"),
