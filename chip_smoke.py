@@ -39,7 +39,24 @@ Phases (any failure exits non-zero):
  8. [pipeline-cpu]: `run_pipeline` on a small seeded family on the card
     and on the CPU, as classified and with classifier 3 forced to RIR
     (blocks realigned on the card): equal decisions, both hashes
-    printed; then a two-sequence realign (the sparse qp route).
+    printed; then a two-sequence realign (the sparse qp route);
+ 9. [np]: the non-progressive base aligner (`cli base -p 1`,
+    `align_family(strategy=1)`) on the smoke family on the card: validity,
+    stage timers, launches, graph nodes, peak bytes, hash; then
+    `run_pipeline` on a family that classifier 1 sends to the NP
+    strategy, on the card and the CPU: strategy 1 and equal hashes;
+10. [sector]: `align_family(config="pnp")` on a 96-sequence family whose
+    dense tensor is over its budget: the consistency must run by sectors
+    on the card, with no downgrade; block size, sector count, predicted
+    against measured peak bytes, relaxation time, hash; then a sector
+    relaxation forced into several blocks on the card against the same
+    call on the CPU (atol 2e-4);
+11. [long]: both kernels at B=1, Lp=8,192 and 8,320 (the long family's
+    length, past the short instances) against their plain versions,
+    their times at B=1 up to Lp=16,384; then `cli base` on a
+    three-sequence family with one sequence of 8,250 residues (every
+    pair past 8,192 lanes or beside it): wall time, stage timers,
+    validity, launches.
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a path that launched none of its kernels fails.
 Before the last line come the kernels' JSON record and the nvidia-smi
@@ -281,8 +298,10 @@ def main() -> None:
             score_ok = torch.allclose(sc_k, sc_p, rtol=TOL["score_rtol"],
                                       atol=TOL["score_atol"])
             nb_ok = bool(torch.equal(nb_k, nb_p))
-            vals_k, lanes_k, sc_t = wk.combine(fk, rk, LX, LY, models,
-                                               topk=16, cutoff=0.01)
+            # the fused top-k with match counts, the NP path's mode
+            vals_k, lanes_k, sc_t, nb_t = wk.combine(
+                fk, rk, LX, LY, models, with_matches=True, topk=16,
+                cutoff=0.01)
             vals_w, lanes_w = wk.wf.topk_skew(post_k, 16, 0.01)
             e_topk = float((vals_k - vals_w).abs().max())
             pos = vals_w > 0
@@ -292,14 +311,16 @@ def main() -> None:
                    "post_err": e_post, "pad_nonzero": pad_nonzero,
                    "score_ok": score_ok, "matches_equal": nb_ok,
                    "topk_err": e_topk, "topk_lanes_equal": lanes_ok,
-                   "topk_score_equal": bool(torch.equal(sc_t, sc_k))}
+                   "topk_score_equal": bool(torch.equal(sc_t, sc_k)),
+                   "topk_matches_equal": bool(torch.equal(nb_t, nb_p))}
             print("[check] " + json.dumps(rec), flush=True)
             # the sweep keeps the plain version's scales bit for bit
             ok = (e_plane <= TOL["plane"] and e_l2t <= TOL["l2t"]
                   and scale_rows == 0
                   and e_post <= TOL["post"] and pad_nonzero == 0
                   and score_ok and nb_ok and e_topk <= TOL["topk"]
-                  and lanes_ok and rec["topk_score_equal"])
+                  and lanes_ok and rec["topk_score_equal"]
+                  and rec["topk_matches_equal"])
             if not ok:
                 fail(f"kernel disagrees with its plain version: {rec}")
             worst["sweep"] = max(worst["sweep"], e_plane)
@@ -635,6 +656,222 @@ def main() -> None:
     if not valid_msa(tmsa, pair) or tlaunch["sweep"] < 1:
         fail(f"the two-sequence realign failed on the card: {tlaunch}")
 
+    # ---- 9. [np]: the non-progressive base aligner ------------------------
+    nrep: dict = {}
+    nmsa, nwall, nlaunch, npeak, ntimers = drive(
+        lambda: aligner.align_family(records, config="pnp", strategy=1,
+                                     report=nrep, device="cuda"))
+    print("[np] " + json.dumps({
+        "family": "synthetic N=48 L=330-470 sub=0.5 indel=0.1 seed=48",
+        "entry": "cli base -p 1 (align_family config=pnp strategy=1)",
+        "wall_s": nwall, "valid": valid_msa(nmsa, records),
+        "stages_s": ntimers, "launches": nlaunch, "report": nrep,
+        "graph_nodes": nrep.get("graph_nodes"),
+        "peak_device_bytes": npeak, "content_hash": nmsa.content_hash(),
+        "columns": nmsa.length,
+    }, default=float), flush=True)
+    if not valid_msa(nmsa, records):
+        fail("the NP base MSA does not degap to its input records")
+    if min(nlaunch.values()) < 1:
+        fail(f"the NP path did not run every kernel: {nlaunch}")
+    np_family = synthetic_family(16, 12, 24, sub=0.5, indel=0.1, seed=2)
+    (cmsa, crep), cwall, claunch, _, _ = drive(
+        lambda: run_pipeline(np_family, device="cuda"))
+    t0 = time.perf_counter()
+    hmsa, hrep = run_pipeline(np_family, device="cpu")
+    hwall = time.perf_counter() - t0
+    rec = {"family": "synthetic N=16 L=12-24 sub=0.5 indel=0.1 seed=2",
+           "cuda": {"wall_s": cwall, "strategy": crep.strategy,
+                    "hash": crep.final_hash, "launches": claunch,
+                    "engines": crep.engines, "error": crep.error},
+           "cpu": {"wall_s": hwall, "strategy": hrep.strategy,
+                   "hash": hrep.final_hash},
+           "hashes_equal": crep.final_hash == hrep.final_hash}
+    print("[np] run_pipeline: " + json.dumps(rec, default=float), flush=True)
+    if crep.strategy != 1 or hrep.strategy != 1:
+        fail(f"classifier 1 did not send the NP family to NP: {rec}")
+    if crep.final_hash != hrep.final_hash or crep.crash_fallback \
+            or crep.block_errors or not valid_msa(cmsa, np_family):
+        fail(f"the NP family's pipeline differs on the card: {rec}")
+    if min(claunch.values()) < 1:
+        fail(f"the NP family's pipeline did not run every kernel: {claunch}")
+
+    # ---- 10. [sector]: a family over the dense tensor's budget -------------
+    big = synthetic_family(96, 330, 470, sub=0.5, indel=0.1, seed=96)
+    srep: dict = {}
+    relax_real = aligner.sectorlib.relax_sector_device
+    relax_seen: dict = {}
+
+    def relax_measured(*a, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = relax_real(*a, **kw)
+        torch.cuda.synchronize()
+        relax_seen["seconds"] = time.perf_counter() - t0
+        relax_seen["peak_bytes_above_base"] = (
+            torch.cuda.max_memory_allocated() - base)
+        return out
+
+    aligner.sectorlib.relax_sector_device = relax_measured
+    try:
+        smsa, swall, slaunch, _, stimers = drive(
+            lambda: aligner.align_family(big, config="pnp", report=srep,
+                                         device="cuda"))
+    finally:
+        aligner.sectorlib.relax_sector_device = relax_real
+    plan = srep.get("sector", {})
+    rec = {"family": "synthetic N=96 L=330-470 sub=0.5 indel=0.1 seed=96",
+           "wall_s": swall, "stages_s": stimers, "launches": slaunch,
+           "engine": srep.get("consistency_engine"),
+           "downgrade": srep.get("consistency_downgrade"), "plan": plan,
+           "relaxation_s": relax_seen.get("seconds"),
+           "measured_peak_bytes": relax_seen.get("peak_bytes_above_base"),
+           "valid": valid_msa(smsa, big), "content_hash": smsa.content_hash()}
+    print("[sector] " + json.dumps(rec, default=float), flush=True)
+    if srep.get("consistency_engine") != "sector" or not str(
+            srep.get("consistency_downgrade", "")).startswith("over_budget"):
+        fail(f"the over-budget family did not relax by sectors: {rec}")
+    if relax_seen["peak_bytes_above_base"] > plan["predicted_peak_bytes"]:
+        fail(f"the sector step outgrew its predicted peak: {rec}")
+    if not valid_msa(smsa, big) or min(slaunch.values()) < 1:
+        fail(f"the sector family's MSA or launches are wrong: {rec}")
+    # several blocks on the card against the same call on the CPU
+    sub_seqs = [degap(encode(q)) for _, q in big[:8]]
+    sposts, _ = aligner.posterior_stage(sub_seqs, "mix", 0.17, dev)
+    slens = [len(q) for q in sub_seqs]
+    sbudget = aligner.sectorlib._sector_peak_bytes(4, 8, 512, 24)
+    kw = {"reps": 2, "budget": sbudget}
+    cplan: dict = {}
+    on_card = aligner.sectorlib.relax_sector_device(
+        sposts, slens, device="cuda", report=cplan, **kw)
+    on_cpu = aligner.sectorlib.relax_sector_device(
+        sposts, slens, device="cpu", **kw)
+    err, edge = 0.0, 0.0
+    for key in on_cpu:
+        a_, b_ = on_card[key].toarray(), on_cpu[key].toarray()
+        both = (a_ > 0) == (b_ > 0)
+        err = max(err, float(abs(a_ - b_)[both].max(initial=0.0)))
+        edge = max(edge, float(abs((a_ + b_)[~both] - 0.01).max(
+            initial=0.0)))
+    rec = {"n": 8, "lp": 512, "plan": cplan["sector"], "max_abs_err": err,
+           "cutoff_edge_err": edge, "pairs": len(on_cpu)}
+    print("[sector] card vs cpu: " + json.dumps(rec), flush=True)
+    if cplan["sector"]["blocks"] < 2 or err > TOL["post"] \
+            or edge > TOL["post"] or on_card.keys() != on_cpu.keys():
+        fail(f"sector relaxation on the card disagrees with the CPU: {rec}")
+    del sposts, on_card, on_cpu
+
+    # ---- 11. [long]: past 8,192 lanes ---------------------------------------
+    # The check runs at Lp = 8,192, the short instances' last length, and
+    # at 8,320, the length the long family below takes: past the short
+    # instances, so the sweep at 32 lanes a thread and combine's tiled DP,
+    # in each mode the path runs.  The log2 totals get 2e-4 or 1e-6 of
+    # |l2t|, whichever is larger (past |l2t| = 2,048 one f32 step is
+    # 2.4e-4, and the two sum the local model in other orders).
+    long_rec = {}
+    models = MODEL_SETS["mix"]
+    nm = len(models)
+    tabs_f, tabs_r = pairwise._wf_tables("mix", 0.17, dev)
+
+    def long_check(lp_chk):
+        X, Y, LX, LY = batch(lp_chk, 1, seed=lp_chk)  # x full length
+        fk, rk = sweeps(wk.sweep, X, Y, LX, LY, tabs_f, tabs_r, models)
+        fp, rp = sweeps(wk.sweep_reference, X, Y, LX, LY, tabs_f, tabs_r,
+                        models)
+        e_plane = max(max(plane_err(fk, fp, m), plane_err(rk, rp, m))
+                      for m in models)
+        scale_rows = sum(int((k["scales"][m] != p["scales"][m]).sum())
+                         for k, p in ((fk, fp), (rk, rp)) for m in models)
+        l2t_pairs = [(float(k["log2t"][m][0]), float(p["log2t"][m][0]))
+                     for k, p in ((fk, fp), (rk, rp)) for m in models]
+        l2t_ok = all(abs(a_ - b_) <= max(TOL["l2t"], 1e-6 * abs(b_))
+                     for a_, b_ in l2t_pairs)
+        del fp, rp
+        post_k, sc_k, nb_k = wk.combine(fk, rk, LX, LY, models,
+                                        with_matches=True)
+        post_p, sc_p, nb_p = wk.combine_reference(fk, rk, LX, LY, models,
+                                                  with_matches=True)
+        e_post = float((post_k - post_p).abs().max())
+        outside = ~grid_mask(post_k.shape[0], post_k.shape[2], LX, LY)
+        pad_nonzero = int((post_k[outside] != 0).sum())
+        del post_p
+        vals_w, lanes_w = wk.wf.topk_skew(post_k, 16, 0.01)
+        topk_err, topk_lanes, topk_rest = 0.0, True, True
+        for wm in (False, True):
+            out = wk.combine(fk, rk, LX, LY, models, with_matches=wm,
+                             topk=16, cutoff=0.01)
+            topk_err = max(topk_err, float((out[0] - vals_w).abs().max()))
+            topk_lanes &= bool(torch.equal(out[1][vals_w > 0],
+                                           lanes_w[vals_w > 0]))
+            topk_rest &= bool(torch.equal(out[2], sc_k))
+            if wm:
+                topk_rest &= bool(torch.equal(out[3], nb_k))
+            del out
+        chk = long_rec[f"check_lp{lp_chk}"] = {
+            "plane_err": e_plane, "scale_rows_differing": scale_rows,
+            "l2t_kernel_plain": l2t_pairs, "l2t_ok": l2t_ok,
+            "post_err": e_post, "pad_nonzero": pad_nonzero,
+            "score_ok": torch.allclose(sc_k, sc_p, rtol=TOL["score_rtol"],
+                                       atol=TOL["score_atol"]),
+            "matches_equal": bool(torch.equal(nb_k, nb_p)),
+            "topk_err": topk_err, "topk_lanes_equal": topk_lanes,
+            "topk_score_matches_equal": topk_rest}
+        print("[long] " + json.dumps(chk), flush=True)
+        if not (e_plane <= TOL["plane"] and scale_rows == 0 and l2t_ok
+                and e_post <= TOL["post"] and pad_nonzero == 0
+                and chk["score_ok"] and chk["matches_equal"]
+                and topk_err <= TOL["topk"] and topk_lanes and topk_rest):
+            fail(f"a kernel disagrees with its plain version at "
+                 f"Lp={lp_chk}: {chk}")
+        worst["sweep"] = max(worst["sweep"], e_plane)
+        worst["combine"] = max(worst["combine"], e_post)
+        del fk, rk, post_k, vals_w, lanes_w
+
+    for lp_chk in (8192, 8320):
+        long_check(lp_chk)
+    # the kernels' times at B=1 beside their byte bounds
+    long_times = {}
+    for lp_ in (8192, 8320, 12288, 16384):
+        X, Y, LX, LY = batch(lp_, 1, seed=lp_)
+        z1 = torch.zeros((1,), dtype=torch.int32, device=dev)
+        D_, W_ = 2 * lp_ + 1, lp_ + 1
+        t_sw = cuda_ms(lambda: wk.sweep(X, Y, z1, z1, LX, LY, tabs_f,
+                                        models=models), 3)
+        fk, rk = sweeps(wk.sweep, X, Y, LX, LY, tabs_f, tabs_r, models)
+        t_cm = cuda_ms(lambda: wk.combine(fk, rk, LX, LY, models,
+                                          with_matches=True, topk=16), 3)
+        t_cd = cuda_ms(lambda: wk.combine(fk, rk, LX, LY, models), 3)
+        sw_b = bound(2 * lp_ + 16 + nm * (D_ * W_ + D_ + 1) * 4,
+                     sum(SWEEP_OPS[m] for m in models) * D_ * W_)
+        long_times[lp_] = {
+            "sweep_ms": t_sw, "sweep_bound_ms": sw_b[0],
+            "combine_topk16_matches_ms": t_cm, "combine_dense_ms": t_cd,
+            "combine_dense_bound_ms":
+                (2 * nm * (D_ * W_ + D_ + 1) * 4 + 8 + D_ * W_ * 4 + 4)
+                / CARD_BYTES * 1e3}
+        del fk, rk
+    print("[long] mix B=1 times: " + json.dumps(long_times), flush=True)
+    # cli base on a family with one sequence past 8,192 residues
+    lfam = synthetic_family(3, 8250, 8250, sub=0.3, indel=0.05, seed=82)
+    lfam = [lfam[0], (lfam[1][0], lfam[1][1][2000:3500]),
+            (lfam[2][0], lfam[2][1][5000:6200])]
+    lrep: dict = {}
+    lmsa, lwall, llaunch, lpeak, ltimers = drive(
+        lambda: aligner.align_family(lfam, config="pnp", report=lrep,
+                                     device="cuda"))
+    rec = {"family": "synthetic N=3 L=8250 sub=0.3 indel=0.05 seed=82, "
+                     "two cut to 1,500 and 1,200 residues",
+           "entry": "cli base (align_family config=pnp)",
+           "wall_s": lwall, "stages_s": ltimers, "launches": llaunch,
+           "report": lrep, "peak_device_bytes": lpeak,
+           "valid": valid_msa(lmsa, lfam),
+           "content_hash": lmsa.content_hash(), "columns": lmsa.length}
+    print("[long] " + json.dumps(rec, default=float), flush=True)
+    if not valid_msa(lmsa, lfam) or min(llaunch.values()) < 1:
+        fail(f"the long family did not align on the card: {rec}")
+
     kernels = []
     for name, src, replaces in (
         ("sweep", "mlprobs_tpu_torch/ops/kernels/csrc/sweep.cu",
@@ -646,7 +883,10 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": plaunch[name],
             "launches_by_path": {"base": launches[name],
-                                 "pipeline": plaunch[name]},
+                                 "pipeline": plaunch[name],
+                                 "np": nlaunch[name],
+                                 "sector": slaunch[name],
+                                 "long": llaunch[name]},
             "max_abs_err": worst[name], "ms": timing[name][0],
             "plain_ms": timing[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,

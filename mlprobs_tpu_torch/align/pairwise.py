@@ -58,7 +58,7 @@ def _wf_batch_size(lp: int, device: torch.device) -> int:
     (pair, cell) — fwd and rev planes of three models, the combined
     plane and its unskewed copy — as a power of two, at most
     `max_batch`, down to 1 for a pair whose planes fill the budget."""
-    budget, _ = engine_budgets(device.type, device.index)
+    budget = engine_budgets(device.type, device.index)[0]
     cap = max(1, budget // (80 * lp * lp))
     cap = 1 << (cap.bit_length() - 1)
     return int(min(cap, _CFG.engine.max_batch))
@@ -300,6 +300,19 @@ class DevicePosteriorTensor:
         return self._extract(S)
 
 
+def tensor_bytes_over_budget(seqs: Sequence[np.ndarray], device) -> int:
+    """The dense tensor's bytes for a family of three or more sequences
+    when they exceed the device's tensor budget, else 0."""
+    device = devlib.resolve(device)
+    n = len(seqs)
+    if n < 3:
+        return 0
+    lp = _bucket_len(max(len(s) for s in seqs))
+    nbytes = n * n * lp * lp * 4
+    budget = engine_budgets(device.type, device.index)[1]
+    return nbytes if nbytes > budget else 0
+
+
 def device_posterior_tensor(
     seqs: Sequence[np.ndarray],
     mode: str,
@@ -320,13 +333,11 @@ def device_posterior_tensor(
     if n < 3:
         report["consistency_downgrade"] = "tiny_family"
         return None
-    lp = _bucket_len(max(len(s) for s in seqs))
-    _, budget = engine_budgets(device.type, device.index)
-    if n * n * lp * lp * 4 > budget:
-        report["consistency_downgrade"] = (
-            f"over_budget:{n * n * lp * lp * 4 >> 20}MiB"
-        )
+    over = tensor_bytes_over_budget(seqs, device)
+    if over:
+        report["consistency_downgrade"] = f"over_budget:{over >> 20}MiB"
         return None
+    lp = _bucket_len(max(len(s) for s in seqs))
 
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
     tabs_f, tabs_r = _wf_tables(mode, leave_prob, device)

@@ -80,12 +80,16 @@ class EngineConfig:
     # budgets on the host (device="cpu"): the JAX package's defaults
     host_plane_budget_bytes: float = 9e9
     host_cons_budget_bytes: float = 4e9
+    host_sector_budget_bytes: float = 8e9
     # budgets on the card, as shares of the device memory free at first
-    # use: the posterior planes of a batch, and the dense (N, N, Lp, Lp)
+    # use: the posterior planes of a batch; the dense (N, N, Lp, Lp)
     # consistency tensor, whose einsum relaxation holds about eight
-    # tensor-sized buffers at its peak
+    # tensor-sized buffers at its peak; and one step of the sector
+    # relaxation (align/sector.py counts its whole peak), which runs
+    # after the posterior batches have freed their planes
     plane_budget_share: float = 0.25
     cons_budget_share: float = 0.1
+    sector_budget_share: float = 0.25
 
 
 @dataclass
@@ -101,17 +105,20 @@ DEFAULT = Config()
 
 @functools.lru_cache(maxsize=8)
 def engine_budgets(device_type: str, device_index: int | None = None
-                   ) -> tuple[int, int]:
-    """(plane_budget, cons_budget) in bytes for one device.
+                   ) -> tuple[int, int, int]:
+    """(plane_budget, cons_budget, sector_budget) in bytes for one device.
 
-    On the card both are shares of `torch.cuda.mem_get_info()` read once,
+    On the card they are shares of `torch.cuda.mem_get_info()` read once,
     at first use; on the CPU they are the fixed host figures.
     """
     eng = DEFAULT.engine
     if device_type != "cuda":
-        return int(eng.host_plane_budget_bytes), int(eng.host_cons_budget_bytes)
+        return (int(eng.host_plane_budget_bytes),
+                int(eng.host_cons_budget_bytes),
+                int(eng.host_sector_budget_bytes))
     import torch
 
     free, _ = torch.cuda.mem_get_info(device_index)
     return (int(free * eng.plane_budget_share),
-            int(free * eng.cons_budget_share))
+            int(free * eng.cons_budget_share),
+            int(free * eng.sector_budget_share))

@@ -51,6 +51,18 @@
 //   between DP warps, published by one named barrier of the DP warps a
 //   diagonal.  Up to Lp = 512 one DP warp holds the whole pair, and the
 //   chain has no barrier at all.
+// - Past Lp = 8,192 (sequences of more than 8,192 residues) the 8 DP
+//   warps walk the row in T tiles of 4,096 lanes, 16 lanes a thread in
+//   each: tile t of warp g holds lanes 1 + 16 * ((t * 8 + g) * 32 + l)
+//   onwards.  A thread keeps the DP state of its T tiles in local memory
+//   (the L1 and L2 caches) and brings one tile at a time into registers;
+//   the j-1 neighbour of a tile's first lane crosses warps, and from the
+//   last warp into the next tile, through one shared slot per chunk of
+//   512 lanes.  The diagonal still needs only d - 1 and d - 2, so the
+//   tiles of a diagonal run in any order, and one barrier a diagonal
+//   still publishes every edge.  The ring then takes all of a block's
+//   shared memory: 4 rows (so 4 producers) up to Lp = 12,288, 3 at
+//   Lp = 16,384.
 // The ring is the pipeline: a row is handed over by two mbarriers, `full`
 // (the producer's 32 lanes arrive after writing it) and `empty` (the DP
 // lanes arrive after reading it), so a producer runs up to R diagonals
@@ -85,9 +97,16 @@
 namespace {
 
 constexpr int PARTITION = 2;
+constexpr float TINY = 1e-38f;  // the plain version's floor for log2
 constexpr int MAX_DP_WARPS = 8;
 constexpr int MAX_PRODUCERS = 8;
 constexpr int MAX_RING = 16;
+// the tiled DP (Lp > MAX_DP_WARPS * 32 * 32): lanes a thread in a tile,
+// and tiles at most
+constexpr int TILE_LPT = 16;
+constexpr int MAX_TILES = 16;
+constexpr int MAX_CHUNKS = MAX_TILES * MAX_DP_WARPS;
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block can have
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float pow2i(float e) {
@@ -135,13 +154,17 @@ __device__ __forceinline__ float sqrt_rn(float x) {
   return xs == 0.f ? 0.f : s;
 }
 
-// the diagonal's split power-of-two factors of one model: pa, pb, c
+// the diagonal's split power-of-two factors of one model: pa, pb, c.
+// Each of pa and pb carries at most 2^127 (2^-126); what they cannot
+// carry of 2^-ti (|t| past 253, a tiny f times a tiny r on a long pair)
+// scales c, exactly, so that p keeps the plain version's value.
 __device__ __forceinline__ float4 factors(float sf, float sr, float l2t) {
   const float t = sf + sr + l2t;
   const float ti = floorf(t);
-  const float a = floorf(-ti * 0.5f);
-  const float b2 = -ti - a;
-  return make_float4(pow2i(a), pow2i(b2), exp2f(-(t - ti)), 0.f);
+  const float a = fminf(fmaxf(floorf(-ti * 0.5f), -126.f), 127.f);
+  const float b2 = fminf(fmaxf(-ti - a, -126.f), 127.f);
+  return make_float4(pow2i(a), pow2i(b2),
+                     exp2f(-(t - ti)) * pow2i(-ti - a - b2), 0.f);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -326,7 +349,9 @@ __device__ void produce(const Args& a, int pw, int P, int R, int rowf,
 #pragma unroll
         for (int m = 0; m < NM; ++m) {
           const float f = fv[u][m], r = rv[u][m];
-          float p = (f * pa[m]) * (r * pb[m]) * cc[m];
+          // a subnormal plane value counts as TINY, as in the plain
+          // version's log2(max(f, TINY))
+          float p = (fmaxf(f, TINY) * pa[m]) * (fmaxf(r, TINY) * pb[m]) * cc[m];
           p = fminf(p, 1.f);
           p = (f > 0.f && r > 0.f) ? p : 0.f;
           acc = m == 0 ? p * p : acc + p * p;
@@ -376,6 +401,120 @@ __device__ void produce(const Args& a, int pw, int P, int R, int rowf,
       __syncwarp();  // the list is this warp's again next turn
     }
     mbar_arrive(full + s);  // each lane after its own writes
+  }
+}
+
+// The tiled DP (Lp > 8,192): DP warp g of G takes chunk c = t * G + g of
+// every tile t, lanes 1 + LPT * (32 * c + l) ... of its thread; the state
+// of the thread's T tiles lives in local memory between diagonals.  The
+// step is mwt's, cell for cell.
+template <int LPT, bool WM>
+__device__ void mwt_tiled(const Args& a, int g, int G, int T, int R,
+                          int rowf, const float* ring, uint64_t* full,
+                          uint64_t* empty, float2* edge) {
+  const int l = threadIdx.x & 31;
+  const int Lp = a.Lp, W = Lp + 1, D = 2 * Lp + 1;
+  const int b = blockIdx.x;
+  const int ly = a.ly[b], dterm = a.lx[b] + ly;
+  const int nc = T * G;  // chunks of 32 * LPT lanes
+  float S1[MAX_TILES][LPT], S2[MAX_TILES][LPT];
+  float N1[MAX_TILES][LPT], N2[MAX_TILES][LPT];
+  float L2[MAX_TILES], NL2[MAX_TILES];  // s, n of (d-2, j0-1) a tile
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int k = 0; k < LPT; ++k)
+      S1[t][k] = S2[t][k] = N1[t][k] = N2[t][k] = 0.f;
+    L2[t] = NL2[t] = 0.f;
+  }
+  float sc = 0.f, nbv = 0.f;
+  int s = 0;
+  unsigned ph = 0;
+  for (int d = 0; d < D; ++d) {
+    const int par = d & 1;
+    mbar_wait(full + s, ph);
+    const float* rowd = ring + (size_t)s * rowf + 3;
+#pragma unroll 1
+    for (int t = 0; t < T; ++t) {
+      const int c = t * G + g;
+      const int j0 = 1 + (c * 32 + l) * LPT;
+      float s1[LPT], s2[LPT], n1[LPT], n2[LPT], pv[LPT];
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        s1[k] = S1[t][k];
+        s2[k] = S2[t][k];
+        n1[k] = WM ? N1[t][k] : 0.f;
+        n2[k] = WM ? N2[t][k] : 0.f;
+      }
+      // (d-1, j0-1): from the thread to the left, or the chunk's edge slot
+      float l1 = __shfl_up_sync(FULL_MASK, s1[LPT - 1], 1);
+      float nl1 = 0.f;
+      if constexpr (WM) nl1 = __shfl_up_sync(FULL_MASK, n1[LPT - 1], 1);
+      if (l == 0) {
+        const float2 e = c == 0 ? make_float2(0.f, 0.f)
+                                : edge[(par ^ 1) * MAX_CHUNKS + c];
+        l1 = e.x;
+        nl1 = e.y;
+      }
+      const float l2 = L2[t], nl2 = NL2[t];
+      const float* row = rowd + j0;  // 16-byte aligned
+#pragma unroll
+      for (int q = 0; q < LPT / 4; ++q) {
+        const float4 x = reinterpret_cast<const float4*>(row)[q];
+        pv[4 * q] = x.x;
+        pv[4 * q + 1] = x.y;
+        pv[4 * q + 2] = x.z;
+        pv[4 * q + 3] = x.w;
+      }
+      float sn[LPT], nn[LPT];
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const int j = j0 + k;
+        const float p = j < W ? pv[k] : 0.f;  // past W the row holds junk
+        const float left = k ? s1[k - 1] : l1;
+        const float pd = p + (k ? s2[k - 1] : l2);
+        const float up = s1[k];
+        const bool take_d = pd >= left && pd >= up;
+        const bool take_l = left >= up;
+        const bool boundary = d <= j;  // i = d - j <= 0 (j >= 1 here)
+        sn[k] = boundary ? 0.f : (take_d ? pd : (take_l ? left : up));
+        nn[k] = 0.f;
+        if constexpr (WM) {
+          const float nd = (k ? n2[k - 1] : nl2) + 1.f;
+          const float nlft = k ? n1[k - 1] : nl1;
+          nn[k] = boundary ? 0.f : (take_d ? nd : (take_l ? nlft : n1[k]));
+        }
+      }
+      if (d == dterm) {
+#pragma unroll
+        for (int k = 0; k < LPT; ++k)
+          if (j0 + k == ly) {
+            sc = sn[k];
+            nbv = nn[k];
+          }
+      }
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        S2[t][k] = s1[k];
+        S1[t][k] = sn[k];
+        if constexpr (WM) {
+          N2[t][k] = n1[k];
+          N1[t][k] = nn[k];
+        }
+      }
+      L2[t] = l1;
+      NL2[t] = nl1;
+      if (l == 31 && c + 1 < nc)
+        edge[par * MAX_CHUNKS + c + 1] = make_float2(sn[LPT - 1], nn[LPT - 1]);
+    }
+    mbar_arrive(empty + s);  // each lane after its own reads
+    s = s + 1 == R ? 0 : s + 1;
+    if (s == 0) ph ^= 1u;
+    dp_sync(32 * G);
+  }
+  const int q = ly >= 1 ? (ly - 1) / LPT : 0;  // thread-lane of lane ly
+  if ((q >> 5) % G == g && (q & 31) == l) {
+    a.score[b] = sc;
+    if (WM) a.nb[b] = nbv;
   }
 }
 
@@ -477,13 +616,14 @@ __device__ void mwt(const Args& a, int g, int G, int R, int rowf,
   }
 }
 
-// warps 0 .. G-1 run the DP, the rest produce posterior rows
-template <int NM, int LPT, bool TOPK, bool WM>
+// warps 0 .. G-1 run the DP, the rest produce posterior rows; TILED:
+// the DP in T tiles, its edge slots after the candidate lists
+template <int NM, int LPT, bool TOPK, bool WM, bool TILED>
 __global__ void __launch_bounds__(512)
-    combine_kernel(const Args a, int G, int R) {
+    combine_kernel(const Args a, int G, int R, int T) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int rowf = ring_row(G, LPT);
+  const int rowf = ring_row(TILED ? G * T : G, LPT);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)R * rowf);
   uint64_t* empty = full + R;
   float2* edge = reinterpret_cast<float2*>(empty + R);
@@ -498,11 +638,19 @@ __global__ void __launch_bounds__(512)
     }
     mbar_fence_init();
   }
+  float2* tedge = reinterpret_cast<float2*>(cand_l + MAX_PRODUCERS * 32);
   if (threadIdx.x < 2 * MAX_DP_WARPS)
     edge[threadIdx.x] = make_float2(0.f, 0.f);
+  if constexpr (TILED) {
+    for (int k = threadIdx.x; k < 2 * MAX_CHUNKS; k += blockDim.x)
+      tedge[k] = make_float2(0.f, 0.f);
+  }
   __syncthreads();
   if (warp < G) {
-    mwt<LPT, WM>(a, warp, G, R, rowf, smem, full, empty, edge);
+    if constexpr (TILED)
+      mwt_tiled<LPT, WM>(a, warp, G, T, R, rowf, smem, full, empty, tedge);
+    else
+      mwt<LPT, WM>(a, warp, G, R, rowf, smem, full, empty, edge);
   } else {
     const int pw = warp - G;
     produce<NM, TOPK>(a, pw, P, R, rowf, smem, full, empty,
@@ -517,53 +665,64 @@ int device_attr(cudaDeviceAttr attr) {
   return v;
 }
 
-template <int NM, int LPT, bool TOPK, bool WM>
+template <int NM, int LPT, bool TOPK, bool WM, bool TILED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int G = std::max(1, (a.Lp + 32 * LPT - 1) / (32 * LPT));
+  // TILED: all DP warps, T tiles of them across the row
+  const int G = TILED ? MAX_DP_WARPS
+                      : std::max(1, (a.Lp + 32 * LPT - 1) / (32 * LPT));
+  const int T = TILED ? (a.Lp + G * 32 * LPT - 1) / (G * 32 * LPT) : 1;
+  if (T > MAX_TILES) return cudaErrorInvalidValue;
+  const int GT = G * T;
+  const size_t extra = TILED ? 2 * MAX_CHUNKS * 8 : 0;
   // the ring's depth: two blocks an SM where they fit, else one
   const int per_sm = device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
   const int reserved = device_attr(cudaDevAttrReservedSharedMemoryPerBlock);
   const int optin = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   auto depth = [&](int budget) {
     int R = MAX_RING;
-    while (R > 2 && smem_bytes(G, LPT, R) > (size_t)budget) --R;
+    const int least = TILED ? 1 : 2;
+    while (R > least && smem_bytes(GT, LPT, R) + extra > (size_t)budget) --R;
     return R;
   };
-  int R = depth(per_sm / 2 - reserved);
-  if (smem_bytes(G, LPT, R) > (size_t)(per_sm / 2 - reserved))
+  // (TILED: one block an SM, and as many rows, so producers, as fit)
+  int R = depth(TILED ? optin : per_sm / 2 - reserved);
+  if (smem_bytes(GT, LPT, R) + extra > (size_t)(per_sm / 2 - reserved))
     R = depth(optin);
   // no more producers than ring rows: a producer then waits only for the
   // row of the diagonal R before its own, and an mbarrier's phase parity
   // never aliases (it would if the DP could be two uses of a row behind)
   const int P = std::min(G == 1 ? MAX_PRODUCERS - 1 : MAX_PRODUCERS, R);
-  const size_t smem = smem_bytes(G, LPT, R);
-  auto kern = combine_kernel<NM, LPT, TOPK, WM>;
+  const size_t smem = smem_bytes(GT, LPT, R) + extra;
+  if (smem > (size_t)std::min(optin, MAX_SMEM)) return cudaErrorInvalidValue;
+  auto kern = combine_kernel<NM, LPT, TOPK, WM, TILED>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kern<<<a.B, 32 * (G + P), smem, stream>>>(a, G, R);
+  kern<<<a.B, 32 * (G + P), smem, stream>>>(a, G, R, T);
   return cudaGetLastError();
 }
 
-template <int NM, int LPT>
+template <int NM, int LPT, bool TILED>
 cudaError_t launch_mode(const Args& a, bool with_matches,
                         cudaStream_t stream) {
   if (a.topk > 0)
-    return with_matches ? launch<NM, LPT, true, true>(a, stream)
-                        : launch<NM, LPT, true, false>(a, stream);
-  return with_matches ? launch<NM, LPT, false, true>(a, stream)
-                      : launch<NM, LPT, false, false>(a, stream);
+    return with_matches ? launch<NM, LPT, true, true, TILED>(a, stream)
+                        : launch<NM, LPT, true, false, TILED>(a, stream);
+  return with_matches ? launch<NM, LPT, false, true, TILED>(a, stream)
+                      : launch<NM, LPT, false, false, TILED>(a, stream);
 }
 
 template <int NM>
 cudaError_t launch_lpt(const Args& a, bool with_matches,
                        cudaStream_t stream) {
-  // at most MAX_DP_WARPS DP warps
+  // at most MAX_DP_WARPS DP warps; past their 32 lanes a thread, tiles
   if (a.Lp <= MAX_DP_WARPS * 32 * 16)
-    return launch_mode<NM, 16>(a, with_matches, stream);
-  return launch_mode<NM, 32>(a, with_matches, stream);
+    return launch_mode<NM, 16, false>(a, with_matches, stream);
+  if (a.Lp <= MAX_DP_WARPS * 32 * 32)
+    return launch_mode<NM, 32, false>(a, with_matches, stream);
+  return launch_mode<NM, TILE_LPT, true>(a, with_matches, stream);
 }
 
 }  // namespace
@@ -577,8 +736,7 @@ extern "C" int combine_launch(const void* fwd, const void* fsc,
                               void* post, void* vals, void* lanes,
                               void* score, void* nb, void* stream) {
   const int W = Lp + 1;
-  if (Lp < 0 || W > 8192 || nm < 1 || nm > 3 || B < 1 || topk < 0 ||
-      topk > W)
+  if (Lp < 0 || nm < 1 || nm > 3 || B < 1 || topk < 0 || topk > W)
     return (int)cudaErrorInvalidValue;
   const Args a = {(const float*)fwd, (const float*)fsc, (const float*)fl2t,
                   (const float*)rev, (const float*)rsc, (const float*)rl2t,

@@ -30,26 +30,36 @@
 // moves one lane right per diagonal, in registers); no global memory is
 // read inside the loop.
 //
+// Past 8,192 lanes (sequences of more than 8,192 residues) the same code
+// runs with LPT = 32, up to 65,536 lanes in 8 blocks: a thread then holds
+// more states than registers, and the spilled ones live in local memory
+// (the L1 and L2 caches).  The blocks' maxima meet in the cluster as
+// before, so the scales stay exact.  The x row in shared memory bounds
+// that instance at Lp of about 43,000.
+//
 // The critical path of one diagonal: the cells of the thread's lanes
-// (independent, so they run back to back); the neighbour sums from the
-// unscaled states, overlapping the reduction; one warp max (a single
-// integer redux: the values are non-negative, so their bit patterns order
-// as the floats do); one store of it; the one barrier; a vector load of
-// the per-warp maxima; the power of two built from the exponent field;
-// then a few multiplies a lane.  The plane row goes out through the
-// warp's staging row, so each warp store covers 32 consecutive floats.
+// (independent, so they run back to back); one warp max (a single integer
+// redux: the values are non-negative, so their bit patterns order as the
+// floats do); one store of it; the one barrier; a vector load of the
+// per-warp maxima; the power of two built from the exponent field; then
+// the scaling and the neighbour sums, a few dozen operations a lane.  The
+// plane row goes out through the warp's staging row, so each warp store
+// covers 32 consecutive floats.
 // The local model's row sums travel one diagonal late, and one warp folds
 // them into the log2 total every 32 diagonals, off that path.
 //
 // The scales.  Each diagonal is rescaled by the power of two of its own
 // row max, exactly as the plain version does, so the scales are the plain
-// version's bit for bit and nothing downstream moves.  A lane's own
-// states are scaled, then read back, as there; the sums its neighbour
-// reads are formed from the unscaled states in the plain version's order
-// and then scaled, which equals the plain version's sum of scaled states
-// wherever the values are normal floats (multiplying by a power of two is
-// exact there).  Built with --fmad=false, so every product and sum rounds
-// as the plain version's.
+// version's bit for bit and nothing downstream moves.  A lane's states are
+// scaled, and the sums its right neighbour reads are formed from the
+// scaled states in the plain version's order, as there; a lane's left
+// neighbour hands over its unscaled states (a shuffle, or one shared slot
+// across a warp or block edge) and they are scaled on arrival.  So the
+// arithmetic is the plain version's op for op, subnormal values included:
+// on a long pair a region of the diagonal that sat far below the row max
+// can grow to set it later, and a sum formed before the scaling would
+// round such values differently.  Built with --fmad=false, so every
+// product and sum rounds as the plain version's.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,11 +85,13 @@ constexpr int TAB_SIZE = 544;
 
 constexpr int HMM5 = 0, LOCAL = 1, PARTITION = 2;
 
-constexpr int LPT = 4;            // contiguous lanes per thread
-constexpr int MAX_THREADS = 256;  // per block: 1,024 lanes
+// contiguous lanes per thread: LPT_SHORT up to 8,192 lanes, else LPT_LONG
+constexpr int LPT_SHORT = 4, LPT_LONG = 32;
+constexpr int MAX_THREADS = 256;  // per block: 1,024 lanes at LPT_SHORT
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int MAX_CLUSTER = 8;    // blocks per (pair, model), portable
 constexpr int RING = 64;          // local model: diagonals of row sums kept
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block can have
 
 __device__ __forceinline__ float exp2i(float e) {
   // exact 2**e for integer-valued e, built from the exponent field: what
@@ -103,12 +115,6 @@ __device__ __forceinline__ float logaddexp2f(float a, float b) {
   return m + log1pf(exp2f(-fabsf(a - b))) * 1.4426950408889634f;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -122,6 +128,7 @@ struct Plan {
   int cl, nt, span;
 };
 
+template <int LPT>
 __host__ __device__ inline Plan make_plan(int W) {
   const int lanes = W - 1;
   int cl = (lanes + MAX_THREADS * LPT - 1) / (MAX_THREADS * LPT);
@@ -137,14 +144,15 @@ struct Smem {
   int pm, pins, red, edge, ring_rs, ring_fs, stage, xs, total_bytes;
 };
 
+template <int LPT>
 __host__ __device__ inline Smem smem_layout(int Lp, Plan p) {
   const int nw = p.nt / 32, R = p.cl * nw;
   Smem s;
   s.pm = 0;                              // 441 (+pad)
   s.pins = 448;                          // 42 (+pad), read as float2
   s.red = 496;                           // [2][64] per-warp maxima
-  s.edge = s.red + 128;                  // [2][MAX_WARPS][4] edge sums
-  s.ring_rs = s.edge + 2 * MAX_WARPS * 4;  // [RING][R] warp row sums
+  s.edge = s.red + 128;                  // [2][MAX_WARPS][8] edge states
+  s.ring_rs = s.edge + 2 * MAX_WARPS * 8;  // [RING][R] warp row sums
   s.ring_fs = s.ring_rs + RING * R;      // [RING][2] (f, s) per diagonal
   s.stage = (s.ring_fs + 2 * RING + 3) / 4 * 4;  // [nw][32*LPT], 16 B
   s.xs = s.stage + nw * 32 * LPT;
@@ -278,7 +286,10 @@ __device__ __forceinline__ void sums(const Model<KIND>& M, const float* st,
 
 // The local model's log2 total over diagonals [lo, hi), hi - lo <= 32:
 // one warp, lane l takes diagonal lo + l; the row sums of its warps times
-// its power of two, then a log-sum-exp of the 32 terms into acc.
+// its power of two, then the terms into acc one diagonal at a time, in
+// order, as the plain version adds them (a log-sum-exp of the 32 terms at
+// once rounds otherwise, and over 16,000 diagonals the two totals drift
+// apart by more than 1e-6 of |l2t|).
 __device__ float fold_rows(float acc, int lo, int hi, const float* ring_rs,
                            const float* ring_fs, int R) {
   const int q = lo + (threadIdx.x & 31);
@@ -291,10 +302,9 @@ __device__ float fold_rows(float acc, int lo, int hi, const float* ring_rs,
     if (rowsum > 0.f)
       t = log2f(fmaxf(rowsum, TINY)) - ring_fs[(q & (RING - 1)) * 2 + 1];
   }
-  const float m = warp_max(t);
-  if (m == -INFINITY) return acc;
-  const float s = warp_sum(t == -INFINITY ? 0.f : exp2f(t - m));
-  return logaddexp2f(acc, m + log2f(s));
+  for (int k = 0; k < hi - lo; ++k)
+    acc = logaddexp2f(acc, __shfl_sync(0xffffffffu, t, k));
+  return acc;
 }
 
 template <bool CLUSTER>
@@ -314,7 +324,7 @@ __device__ __forceinline__ float* at_rank(float* p, int rank) {
     return p;
 }
 
-template <int KIND, bool EMIT, bool CLUSTER>
+template <int KIND, bool EMIT, bool CLUSTER, int LPT>
 __device__ void sweep_one(const int8_t* __restrict__ X,
                           const int8_t* __restrict__ Y, int ox, int oy,
                           int lx, int ly, const float* __restrict__ tab,
@@ -329,7 +339,7 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
   const int nt = P.nt, tid = threadIdx.x;
   const int warp = tid >> 5, wl = tid & 31;
   const int nw = nt >> 5, R = P.cl * nw;
-  const Smem L = smem_layout(Lp, P);
+  const Smem L = smem_layout<LPT>(Lp, P);
   float* pm = smem + L.pm;
   const float2* pins2 = reinterpret_cast<const float2*>(smem + L.pins);
   float* red = smem + L.red;
@@ -454,11 +464,6 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
                            b2s[k], e2s1, nv[k], amv[k]);
       }
     }
-    // the sums the right neighbours read, from the unscaled states: they
-    // are scaled after the barrier, and overlap the reduction before it
-    float A[LPT], B1[LPT], B2[LPT];
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) sums<KIND>(M, nv[k], A[k], B1[k], B2[k]);
     // the values are >= 0, so their bits order as the floats do
     unsigned mk[LPT];
     float rs = 0.f;
@@ -495,28 +500,27 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
 #pragma unroll
       for (int s = 0; s < NS; ++s) mxb = max(mxb, __float_as_uint(nv0[s]));
       if constexpr (KIND == LOCAL) rs += nv0[0];
-      // lane 0's sums, for lane 1
-      float* dst = edge + par * MAX_WARPS * 4;
-      sums<KIND>(M, nv0, dst[0], dst[1], dst[2]);
+      // lane 0's unscaled states, for lane 1
+      float* dst = edge + par * MAX_WARPS * 8;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) dst[s] = nv0[s];
     }
-    // the warp's last lane's sums, for the lane right of it
+    // the warp's last lane's unscaled states, for the lane right of it
     if (wl == 31) {
       float* dst = nullptr;
       if (warp + 1 < nw)
-        dst = edge + (par * MAX_WARPS + warp + 1) * 4;
+        dst = edge + (par * MAX_WARPS + warp + 1) * 8;
       else if (CLUSTER && rank + 1 < P.cl)
-        dst = at_rank<CLUSTER>(edge + par * MAX_WARPS * 4, rank + 1);
+        dst = at_rank<CLUSTER>(edge + par * MAX_WARPS * 8, rank + 1);
       if (dst != nullptr) {
-        dst[0] = A[LPT - 1];
-        dst[1] = B1[LPT - 1];
-        dst[2] = B2[LPT - 1];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) dst[s] = nv[LPT - 1][s];
       }
     }
-    const float sA = __shfl_up_sync(0xffffffffu, A[LPT - 1], 1);
-    const float sB1 = __shfl_up_sync(0xffffffffu, B1[LPT - 1], 1);
-    float sB2 = 0.f;
-    if constexpr (KIND != LOCAL)
-      sB2 = __shfl_up_sync(0xffffffffu, B2[LPT - 1], 1);
+    float left[NS];  // the left neighbour's unscaled states (lanes 1..31)
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      left[s] = __shfl_up_sync(0xffffffffu, nv[LPT - 1][s], 1);
     mxb = __reduce_max_sync(0xffffffffu, mxb);
     if (wl == 0) {
       float* slot = red + par * 64 + rank * nw + warp;
@@ -560,20 +564,13 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
         acc = fold_rows(acc, d - 32, d, ring_rs, ring_fs, R);
     }
 
-    // the scaled states a lane reads back itself: M and the X states
-    // (hmm5, local), Zm and Zf (partition); the Y states (and Ze) reach
-    // the next diagonal only through the neighbour sums
+    // the scaled states: a lane reads back M and the X states (hmm5,
+    // local), Zm and Zf (partition) itself; all of them form the sums
+    // its right neighbour reads
 #pragma unroll
     for (int k = 0; k < LPT; ++k) {
-      st[k][0] = nv[k][0] * f;
-      if constexpr (KIND == HMM5) {
-        st[k][1] = nv[k][1] * f;
-        st[k][3] = nv[k][3] * f;
-      } else if constexpr (KIND == LOCAL) {
-        st[k][1] = nv[k][1] * f;
-      } else {
-        st[k][2] = nv[k][2] * f;
-      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) st[k][s] = nv[k][s] * f;
     }
     // the plane row: through the warp's staging row, 32 consecutive
     // floats a store
@@ -623,21 +620,20 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
       }
     }
 
-    // each lane's left-neighbour sums, scaled: in this thread, from the
-    // thread to the left (shuffled above), across a warp edge from the
-    // edge slot
-    const float* es = edge + (par * MAX_WARPS + warp) * 4;
+    // each lane's left-neighbour sums, from the neighbour's scaled
+    // states: in this thread; from the thread to the left (shuffled
+    // above); across a warp edge from the edge slot
+    const float* es = edge + (par * MAX_WARPS + warp) * 8;
 #pragma unroll
     for (int k = LPT - 1; k > 0; --k) {
       a_cur[k] = a_next[k];
-      a_next[k] = A[k - 1] * f;
-      b1s[k] = B1[k - 1] * f;
-      b2s[k] = B2[k - 1] * f;
+      sums<KIND>(M, st[k - 1], a_next[k], b1s[k], b2s[k]);
     }
+    float lst[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) lst[s] = (wl ? left[s] : es[s]) * f;
     a_cur[0] = a_next[0];
-    a_next[0] = (wl ? sA : es[0]) * f;
-    b1s[0] = (wl ? sB1 : es[1]) * f;
-    b2s[0] = (wl ? sB2 : es[2]) * f;
+    sums<KIND>(M, lst, a_next[0], b1s[0], b2s[0]);
     rc = f;
     s1 = s_new;
   }
@@ -659,7 +655,7 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
   if constexpr (CLUSTER) cg::this_cluster().sync();
 }
 
-template <bool EMIT, bool CLUSTER>
+template <bool EMIT, bool CLUSTER, int LPT>
 __global__ void __launch_bounds__(MAX_THREADS)
     sweep_kernel(const int8_t* X, const int8_t* Y, const int32_t* ox,
                  const int32_t* oy, const int32_t* lx, const int32_t* ly,
@@ -667,34 +663,35 @@ __global__ void __launch_bounds__(MAX_THREADS)
                  float* planes, float* scales, float* l2t) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Plan P = make_plan(Lp + 1);
+  const Plan P = make_plan<LPT>(Lp + 1);
   const int rank = blockIdx.x % P.cl, b = blockIdx.x / P.cl;
   const int mi = blockIdx.y;
   const int kind = mi == 0 ? k0 : (mi == 1 ? k1 : k2);
   const float* tab = tabs + (size_t)mi * TAB_SIZE;
   if (kind == HMM5)
-    sweep_one<HMM5, EMIT, CLUSTER>(X, Y, ox[b], oy[b], lx[b], ly[b], tab, B,
-                                   Lp, b, mi, rank, P, planes, scales, l2t,
-                                   smem);
-  else if (kind == LOCAL)
-    sweep_one<LOCAL, EMIT, CLUSTER>(X, Y, ox[b], oy[b], lx[b], ly[b], tab,
-                                    B, Lp, b, mi, rank, P, planes, scales,
-                                    l2t, smem);
-  else
-    sweep_one<PARTITION, EMIT, CLUSTER>(X, Y, ox[b], oy[b], lx[b], ly[b],
+    sweep_one<HMM5, EMIT, CLUSTER, LPT>(X, Y, ox[b], oy[b], lx[b], ly[b],
                                         tab, B, Lp, b, mi, rank, P, planes,
                                         scales, l2t, smem);
+  else if (kind == LOCAL)
+    sweep_one<LOCAL, EMIT, CLUSTER, LPT>(X, Y, ox[b], oy[b], lx[b], ly[b],
+                                         tab, B, Lp, b, mi, rank, P, planes,
+                                         scales, l2t, smem);
+  else
+    sweep_one<PARTITION, EMIT, CLUSTER, LPT>(X, Y, ox[b], oy[b], lx[b],
+                                             ly[b], tab, B, Lp, b, mi, rank,
+                                             P, planes, scales, l2t, smem);
 }
 
-template <bool EMIT, bool CLUSTER>
+template <bool EMIT, bool CLUSTER, int LPT>
 cudaError_t launch(const int8_t* X, const int8_t* Y, const int32_t* ox,
                    const int32_t* oy, const int32_t* lx, const int32_t* ly,
                    const float* tabs, int nm, int k0, int k1, int k2, int B,
                    int Lp, float* planes, float* scales, float* l2t,
                    cudaStream_t stream) {
-  const Plan P = make_plan(Lp + 1);
-  const size_t smem = smem_layout(Lp, P).total_bytes;
-  auto kern = sweep_kernel<EMIT, CLUSTER>;
+  const Plan P = make_plan<LPT>(Lp + 1);
+  const size_t smem = smem_layout<LPT>(Lp, P).total_bytes;
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  auto kern = sweep_kernel<EMIT, CLUSTER, LPT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -727,8 +724,8 @@ extern "C" int sweep_launch(const void* X, const void* Y, const void* ox,
                             int B, int Lp, int emit_pre, void* planes,
                             void* scales, void* l2t, void* stream) {
   const int W = Lp + 1;
-  if (Lp < 0 || W > MAX_CLUSTER * MAX_THREADS * LPT || nm < 1 || nm > 3 ||
-      B < 1 || B > 65535)
+  if (Lp < 0 || W - 1 > MAX_CLUSTER * MAX_THREADS * LPT_LONG || nm < 1 ||
+      nm > 3 || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   auto* x = (const int8_t*)X;
   auto* y = (const int8_t*)Y;
@@ -741,17 +738,29 @@ extern "C" int sweep_launch(const void* X, const void* Y, const void* ox,
   auto* s = (float*)scales;
   auto* l = (float*)l2t;
   auto st = (cudaStream_t)stream;
-  const bool cluster = make_plan(W).cl > 1;
   cudaError_t err;
+  if (W - 1 > MAX_CLUSTER * MAX_THREADS * LPT_SHORT) {
+    // past 8,192 lanes: always a cluster (8,192 lanes a block at most)
+    err = emit_pre ? launch<true, true, LPT_LONG>(x, y, a, c, e, g, t, nm, k0,
+                                                  k1, k2, B, Lp, p, s, l, st)
+                   : launch<false, true, LPT_LONG>(x, y, a, c, e, g, t, nm,
+                                                   k0, k1, k2, B, Lp, p, s, l,
+                                                   st);
+    return (int)err;
+  }
+  const bool cluster = make_plan<LPT_SHORT>(W).cl > 1;
   if (emit_pre)
-    err = cluster ? launch<true, true>(x, y, a, c, e, g, t, nm, k0, k1, k2,
-                                       B, Lp, p, s, l, st)
-                  : launch<true, false>(x, y, a, c, e, g, t, nm, k0, k1, k2,
-                                        B, Lp, p, s, l, st);
+    err = cluster ? launch<true, true, LPT_SHORT>(x, y, a, c, e, g, t, nm, k0,
+                                                  k1, k2, B, Lp, p, s, l, st)
+                  : launch<true, false, LPT_SHORT>(x, y, a, c, e, g, t, nm,
+                                                   k0, k1, k2, B, Lp, p, s, l,
+                                                   st);
   else
-    err = cluster ? launch<false, true>(x, y, a, c, e, g, t, nm, k0, k1, k2,
-                                        B, Lp, p, s, l, st)
-                  : launch<false, false>(x, y, a, c, e, g, t, nm, k0, k1, k2,
-                                         B, Lp, p, s, l, st);
+    err = cluster ? launch<false, true, LPT_SHORT>(x, y, a, c, e, g, t, nm,
+                                                   k0, k1, k2, B, Lp, p, s, l,
+                                                   st)
+                  : launch<false, false, LPT_SHORT>(x, y, a, c, e, g, t, nm,
+                                                    k0, k1, k2, B, Lp, p, s,
+                                                    l, st);
   return (int)err;
 }

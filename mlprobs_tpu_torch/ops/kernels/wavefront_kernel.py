@@ -11,8 +11,10 @@ D = 2*Lp + 1 rows and W = Lp + 1 lanes, per-diagonal scales as separate
 Each wrapper runs its plain PyTorch version (`sweep_reference`,
 `combine_reference`) only when its input lies on the CPU.  For any other
 tensor it launches the kernel on the current stream or raises: a build or
-launch failure is never answered by the plain version.  `sweep.launches`
-and `combine.launches` count the kernel launches.
+launch failure is never answered by the plain version.  An argument the
+kernel does not take raises KernelArgumentError, a fault of the caller
+that no stage of the pipeline keeps a block for.  `sweep.launches` and
+`combine.launches` count the kernel launches.
 """
 from __future__ import annotations
 
@@ -70,21 +72,28 @@ def pack_tables(tables, models, device) -> torch.Tensor:
     return rows
 
 
+class KernelArgumentError(RuntimeError):
+    """A wrapper was given a tensor or an option its kernel does not take:
+    a fault of the program, never of the family being aligned."""
+
+
 def _check(name, t, dtype, shape, device):
     if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
+        raise KernelArgumentError(f"{name} on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        raise KernelArgumentError(f"{name} has dtype {t.dtype}, "
+                                  f"expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
+        raise KernelArgumentError(f"{name} has shape {tuple(t.shape)}, "
+                                  f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
+        raise KernelArgumentError(f"{name} is not contiguous")
 
 
 def _kinds(models):
-    if not 1 <= len(models) <= 3:
-        raise ValueError(f"1 to 3 models, got {models}")
+    if not 1 <= len(models) <= 3 or not set(models) <= set(MODEL_KIND):
+        raise KernelArgumentError(f"1 to 3 models of {sorted(MODEL_KIND)}, "
+                                  f"got {models}")
     return [MODEL_KIND[m] for m in models] + [0] * (3 - len(models))
 
 
@@ -171,7 +180,7 @@ def combine(fwd, rev, lx, ly, models=("hmm5",), with_matches=False,
     _check("lx", lx, torch.int32, (B,), dev)
     _check("ly", ly, torch.int32, (B,), dev)
     if not 0 <= topk <= W:
-        raise ValueError(f"topk {topk} outside [0, {W}]")
+        raise KernelArgumentError(f"topk {topk} outside [0, {W}]")
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     nb = torch.empty((B,), dtype=torch.float32, device=dev)
     if topk:

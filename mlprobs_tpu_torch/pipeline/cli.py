@@ -3,13 +3,13 @@
     python -m mlprobs_tpu_torch.pipeline.cli align <in.fasta> <out.msa>
         [--device cuda|cpu] [-v]
     python -m mlprobs_tpu_torch.pipeline.cli base <in.fasta> <out.msa>
-        [--config pnp|quickprobs] [-p 0] [--device cuda|cpu] [-v]
+        [--config pnp|quickprobs] [-p 0|1] [--device cuda|cpu] [-v]
 
-`align` runs the full MLProbs pipeline (the MLProbs.py role) for families
-that classifier 1 sends to the progressive strategy; `base` runs the
-family aligner alone (the c_p_np_aln role with `--config pnp`, the
-QuickProbs role with `--config quickprobs`).  Both run on the card; pass
-`--device cpu` for the plain PyTorch path.  `bench` is not ported yet.
+`align` runs the full MLProbs pipeline (the MLProbs.py role); `base` runs
+the family aligner alone (the c_p_np_aln role with `--config pnp`,
+progressive with `-p 0` and non-progressive with `-p 1`; the QuickProbs
+role with `--config quickprobs`).  Both run on the card; pass `--device
+cpu` for the plain PyTorch path.  `bench` is not ported yet.
 """
 from __future__ import annotations
 

@@ -6,11 +6,10 @@ The MLProbs.py role: feature extraction -> classifier 1 (P/NP strategy)
 realignment with acceptance -> recombination, with the reference's
 stage-fallback semantics (a stage failure degrades to a whole-family
 QuickProbs-role alignment, cf. MLProbs.py:84-99).  Everything runs on
-one device: the card unless the caller asks for the CPU.  Only the
-progressive strategy is ported: a family that classifier 1 sends to the
-non-progressive one raises NotImplementedError, as does any unported
-path, and a kernel that cannot be built raises KernelBuildError; neither
-is answered by the fallback.
+one device: the card unless the caller asks for the CPU.  A fault of the
+program is not answered by the fallback: NotImplementedError, a kernel
+that cannot be built (KernelBuildError) and a kernel given an argument
+it does not take (KernelArgumentError) leave run_pipeline.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ from mlprobs_tpu_torch.core.msa import MSA
 from mlprobs_tpu_torch.models import forests
 from mlprobs_tpu_torch.ops.colscore import column_scores
 from mlprobs_tpu_torch.ops.kernels.build import KernelBuildError
+from mlprobs_tpu_torch.ops.kernels.wavefront_kernel import KernelArgumentError
 from mlprobs_tpu_torch.pipeline import regions as reg
 from mlprobs_tpu_torch.pipeline.realign import realign_and_combine
 from mlprobs_tpu_torch.utils import device as devlib
@@ -184,7 +184,7 @@ def run_pipeline(
             out = realign_and_combine(base, blocks, do_blocks,
                                       device=device, report=rep)
         mark("realign")
-    except (NotImplementedError, KernelBuildError):
+    except (NotImplementedError, KernelBuildError, KernelArgumentError):
         raise
     except Exception as e:
         if verbose:

@@ -20,8 +20,9 @@ from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
 
 # What the reference keeps a block for when its realigner fails on it
 # (do_realign.py): the block's own input or the memory it needs.  A
-# missing kernel, an unported path or a failed CUDA launch is a fault of
-# the program, not of the block, and propagates.
+# missing kernel, a kernel given an argument it does not take
+# (KernelArgumentError) or a failed CUDA launch is a fault of the
+# program, not of the block, and propagates.
 BLOCK_RECOVERABLE = (torch.cuda.OutOfMemoryError, MemoryError,
                      ArithmeticError, ValueError, IndexError)
 

@@ -163,10 +163,63 @@ def test_sweep_lane_edges_on_card(cuda_device, mode, lp, b):
             assert float((k["log2t"][m] - p["log2t"][m]).abs().max()) <= 2e-4
 
 
+def _l2t_tol(l2t):
+    """2e-4, or 1e-6 of the total's magnitude where that is larger: the
+    local model's log2 total is a log-sum over 2Lp+1 diagonals in f32,
+    which the plain version adds one diagonal at a time and the kernel 32
+    at a time, and past |l2t| = 2,048 one f32 step is 2.4e-4."""
+    return torch.clamp(l2t.abs() * 1e-6, min=2e-4)
+
+
+def _sweeps_vs_plain(fk, rk, fp, rp, models):
+    """Scales equal, planes within 1e-5 of their row's max, log2 totals
+    within _l2t_tol."""
+    for m in models:
+        for k, p in ((fk, fp), (rk, rp)):
+            assert torch.equal(k["scales"][m], p["scales"][m])
+            rowmax = p["planes"][m].abs().amax(dim=2).clamp(min=1e-38)
+            err = (k["planes"][m] - p["planes"][m]).abs().amax(dim=2)
+            assert float((err / rowmax).max()) <= 1e-5
+            dl = (k["log2t"][m] - p["log2t"][m]).abs()
+            assert bool((dl <= _l2t_tol(p["log2t"][m])).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp", [8192, 8320])
+def test_local_log2_total_on_card(cuda_device, lp):
+    """The local model's log2 total on both sides of the short instances'
+    last length, three pairs (x full, y full, both shorter), both passes:
+    the kernel adds the diagonals' terms in the plain version's order, so
+    the totals agree to _l2t_tol; scales and planes as in
+    test_sweep_cluster_edges_on_card."""
+    models = MODEL_SETS["local"]
+    X, Y, lx, ly = _edge_batch(cuda_device, lp, 3, seed=lp * 5 + 1)
+    tf, tr = tpw._wf_tables("local", 0.17, cuda_device)
+    fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
+    fp, rp = _sweeps(twk.sweep_reference, X, Y, lx, ly, tf, tr, models)
+    _sweeps_vs_plain(fk, rk, fp, rp, models)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp", [2049, 4097, 8064])
+def test_sweep_cluster_edges_on_card(cuda_device, lp):
+    """The sweep against its plain version in clusters of 3, 5 and 8
+    blocks (Lp 2,049, 4,097 and 8,064, three pairs: x of full length, y
+    of full length, both shorter), both passes, all three models in one
+    launch (each model's blocks run the code of its own kind alone)."""
+    models = MODEL_SETS["mix"]
+    X, Y, lx, ly = _edge_batch(cuda_device, lp, 3, seed=lp * 7 + 3)
+    tf, tr = tpw._wf_tables("mix", 0.17, cuda_device)
+    fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
+    fp, rp = _sweeps(twk.sweep_reference, X, Y, lx, ly, tf, tr, models)
+    _sweeps_vs_plain(fk, rk, fp, rp, models)
+
+
 def _combine_vs_plain(fk, rk, lx, ly, models, topks=(1, 16), cutoff=0.01):
     """combine against combine_reference on the same (kernel) sweeps:
     dense + match counts; then the fused top-k for each k in `topks`
-    at `cutoff` against `topk_skew` of the kernel's own dense plane, as
+    at `cutoff`, without and with match counts (the NP path's mode),
+    against `topk_skew` of the kernel's own dense plane, as
     test_kernels_match_plain_on_card holds it (the two planes may differ
     in the last bit, which could reorder near-equal values)."""
     post, score, nb = twk.combine(fk, rk, lx, ly, models, with_matches=True)
@@ -183,12 +236,16 @@ def _combine_vs_plain(fk, rk, lx, ly, models, topks=(1, 16), cutoff=0.01):
     assert torch.equal(nb, nb_p)
     for k in topks:
         k = min(k, W)
-        vals, lanes, sc_t = twk.combine(fk, rk, lx, ly, models, topk=k,
-                                        cutoff=cutoff)
         vw, lw = twf.topk_skew(post, k, cutoff)
-        assert float((vals - vw).abs().max()) <= 1e-7
-        assert torch.equal(lanes[vw > 0], lw[vw > 0])
-        assert torch.equal(sc_t, score)
+        for wm in (False, True):
+            vals, lanes, sc_t, *nb_t = twk.combine(
+                fk, rk, lx, ly, models, with_matches=wm, topk=k,
+                cutoff=cutoff)
+            assert float((vals - vw).abs().max()) <= 1e-7
+            assert torch.equal(lanes[vw > 0], lw[vw > 0])
+            assert torch.equal(sc_t, score)
+            if wm:
+                assert torch.equal(nb_t[0], nb)
 
 
 @pytest.mark.cuda
@@ -228,3 +285,27 @@ def test_combine_topk_ties_on_card(cuda_device, mode, cutoff):
     models = MODEL_SETS[mode]
     fk, rk = _sweeps(twk.sweep, X, X.clone(), lx, lx.clone(), tf, tr, models)
     _combine_vs_plain(fk, rk, lx, lx.clone(), models, cutoff=cutoff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,lp", [
+    ("mix", 8192), ("mix", 12288), ("mix", 16384),
+    ("qp", 8320), ("hmm5", 8320), ("local", 8320), ("partition", 8320),
+])
+def test_kernels_past_8192_lanes_on_card(cuda_device, mode, lp):
+    """Both kernels at B = 1, x of full length and y shorter, at the
+    short instances' last length and past it (Lp = 8,192: the sweep's
+    cluster of 8 blocks at 4 lanes a thread, combine's 32 lanes a
+    thread; Lp = 8,320, 12,288 and 16,384: the sweep at 32 lanes a
+    thread, combine's DP in 3, 3 and 4 tiles): the sweep as in
+    test_sweep_cluster_edges_on_card; combine as in
+    test_combine_lane_edges_on_card."""
+    models = MODEL_SETS[mode]
+    X, Y, lx, ly = (t[:1].contiguous() for t in _edge_batch(
+        cuda_device, lp, 2, seed=lp + len(models)))
+    tf, tr = tpw._wf_tables(mode, 0.17, cuda_device)
+    fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
+    fp, rp = _sweeps(twk.sweep_reference, X, Y, lx, ly, tf, tr, models)
+    _sweeps_vs_plain(fk, rk, fp, rp, models)
+    del fp, rp
+    _combine_vs_plain(fk, rk, lx, ly, models)

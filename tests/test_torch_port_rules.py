@@ -102,7 +102,8 @@ NON_PROGRESSIVE = (16, 12, 24, 0.5, 0.1, 2)
 @pytest.mark.parametrize("entry", [
     "align_family", "family_viterbi_stats", "device_posterior_tensor",
     "all_pairs_posteriors", "cli", "align_family_quickprobs",
-    "run_pipeline", "cli_align",
+    "run_pipeline", "cli_align", "align_family_np", "cli_base_np",
+    "run_pipeline_np",
 ])
 def test_entry_points_need_the_card_unless_asked_for_cpu(no_cuda, entry,
                                                          tmp_path):
@@ -124,11 +125,17 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(no_cuda, entry,
         "run_pipeline":
             lambda **kw: driver.run_pipeline(
                 synthetic_family(*PROGRESSIVE), **kw),
+        "align_family_np":
+            lambda **kw: aligner.align_family(recs, strategy=1, **kw),
+        "run_pipeline_np":
+            lambda **kw: driver.run_pipeline(
+                synthetic_family(*NON_PROGRESSIVE), **kw),
     }
-    if entry in ("cli", "cli_align"):
+    if entry in ("cli", "cli_align", "cli_base_np"):
         if entry == "cli_align":
             recs = synthetic_family(*PROGRESSIVE)
-        args = ["base" if entry == "cli" else "align"]
+        args = {"cli": ["base"], "cli_align": ["align"],
+                "cli_base_np": ["base", "-p", "1"]}[entry]
         inp = tmp_path / "in.fa"
         inp.write_text("".join(f">{h}\n{s}\n" for h, s in recs))
         with pytest.raises(RuntimeError, match="cuda"):
@@ -142,21 +149,21 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(no_cuda, entry,
     assert calls[entry](device="cpu") is not None
 
 
-def test_unported_paths_raise(monkeypatch):
-    """The NP strategy raises, and run_pipeline lets it through: a
-    family that classifier 1 sends there does not quietly become a
-    whole-family QuickProbs alignment."""
-    recs = _family()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aligner.align_family(recs, strategy=1, device="cpu")
-
+def test_np_family_never_takes_the_fallback(monkeypatch):
+    """A family that classifier 1 sends to the non-progressive strategy
+    gets its NP base MSA and goes on through the pipeline: it does not
+    quietly become a whole-family QuickProbs alignment."""
     def no_fallback(*a, **kw):
         raise AssertionError("run_pipeline took the fallback")
 
     monkeypatch.setattr(driver, "_fallback_align", no_fallback)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.run_pipeline(synthetic_family(*NON_PROGRESSIVE),
-                            device="cpu")
+    recs = synthetic_family(*NON_PROGRESSIVE)
+    msa, rep = driver.run_pipeline(recs, device="cpu")
+    assert rep.strategy == 1
+    assert not rep.crash_fallback and rep.error == ""
+    assert rep.engines["consistency_engine"] in ("host", "device")
+    rows = dict(msa.to_records())
+    assert all(rows[h].replace("-", "") == s for h, s in recs)
 
 
 def test_kernel_build_error_in_a_block_realign_propagates(monkeypatch):
@@ -175,6 +182,33 @@ def test_kernel_build_error_in_a_block_realign_propagates(monkeypatch):
     monkeypatch.setattr(realign, "align_family", realigner_without_kernels)
     recs = synthetic_family(6, 40, 90, 0.2, 0.05, 5)   # four RIR blocks
     with pytest.raises(build.KernelBuildError):
+        driver.run_pipeline(recs, device="cpu")
+
+
+def test_kernel_argument_error_in_a_block_realign_propagates(monkeypatch):
+    """A kernel wrapper given a tensor its kernel does not take (here a
+    y batch of the wrong shape on a device) inside a block realign: a
+    fault of the program, not of the block, so it leaves run_pipeline
+    and is not recorded as a block error."""
+    from mlprobs_tpu_torch.models import forests
+
+    real = realign.align_family
+    meta = torch.device("meta")
+    tabs_f, _ = pairwise._wf_tables("partition", None, "cpu")
+
+    def realigner_with_a_bad_call(records, config="pnp", **kw):
+        if config == "quickprobs":
+            X = torch.empty((2, 128), dtype=torch.int8, device=meta)
+            Y = torch.empty((2, 64), dtype=torch.int8, device=meta)
+            L = torch.empty((2,), dtype=torch.int32, device=meta)
+            wk.sweep(X, Y, L, L, L, L, tabs_f, models=("partition",))
+        return real(records, config=config, **kw)
+
+    monkeypatch.setattr(build, "lib", lambda name: None)
+    monkeypatch.setattr(forests, "classify_realign_strategy", lambda *a: 1)
+    monkeypatch.setattr(realign, "align_family", realigner_with_a_bad_call)
+    recs = synthetic_family(6, 40, 90, 0.2, 0.05, 5)   # four RIR blocks
+    with pytest.raises(wk.KernelArgumentError, match="shape"):
         driver.run_pipeline(recs, device="cpu")
 
 
