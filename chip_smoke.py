@@ -27,8 +27,8 @@ Phases (any failure exits non-zero):
     (atol 2e-4); then at the smoke family's qp shape (Lp=512, its batch
     size) the times of the qpx forward+backward, of the two partition
     sweeps and of the whole qp batch, its peak bytes against the batch
-    budget of 80 bytes per (pair, cell), the qpx time at B=32 beside
-    B=256 and one profiler window around a qpx pass (Lp=128, B=256);
+    budget of 80 bytes per (pair, cell), and one profiler window around
+    a qpx pass (Lp=128, B=256);
  6. [pipeline]: `run_pipeline` (the `cli align` path) on the smoke family
     on the card: decisions, stage marks, launches, hash, peak bytes; no
     crash fallback, no block error, rows degap to the inputs;
@@ -51,24 +51,51 @@ Phases (any failure exits non-zero):
     against measured peak bytes, relaxation time, hash; then a sector
     relaxation forced into several blocks on the card against the same
     call on the CPU (atol 2e-4);
-11. [long]: both kernels at B=1, Lp=8,192 and 8,320 (the long family's
-    length, past the short instances) against their plain versions,
-    their times at B=1 up to Lp=16,384; then `cli base` on a
+11. [determinism]: the host profile-posterior scatter in processes of
+    1 thread and of all the machine's threads, three calls each, bit-equal
+    to the JAX package's numpy order (np.bincount in pair order); then the
+    sector family of phase 10 once more in this process, from that
+    run's feature statistics (the one stage not repeated): equal hashes
+    (if not, each stage of its path runs twice to name the one that
+    varies, and the run fails at its end, after the later phases);
+12. [long]: both kernels at B=1, Lp=8,320 (the long family's length,
+    past the short instances) against their plain versions, and their
+    times at B=1 at Lp=8,192 and 8,320; then `cli base` on a
     three-sequence family with one sequence of 8,250 residues (every
     pair past 8,192 lanes or beside it): wall time, stage timers,
-    validity, launches.
+    validity, launches;
+13. [qp-scaled]: MLPROBS_QP_EXACT=0, mode "qp" on both kernels with two
+    models and the Vtml200 partition tables: the kernels against their
+    plain versions at Lp=512/B=256 (dense, top-k, top-k with match
+    counts), their times beside the qpx route's for the same batch;
+    `run_pipeline` on the smoke family on the card (hash beside the
+    default route's) and the small family on the card and the CPU (equal
+    hashes);
+14. [scan]: the row-scan posteriors (ops/pairhmm.py, ops/partition.py)
+    of 4 smoke-family pairs on the card against combine's dense mix
+    posterior, rtol 2e-3 / atol 2e-5;
+15. [bench]: `cli bench` in a subprocess on a suite of two families
+    (seeds 48 and 49) whose golden MSA for seed 48 is phase 6's: that
+    family must score sp = tc = 1.000;
+16. [annot]: `cli base --config quickprobs --annot --clustalw
+    --autosave 1` in a subprocess on the smoke family: one score in
+    0-200 per column, the ClustalW file equal to the last autosave.
 Each path is driven with the launch counts set to 0 just before it and
-read just after; a path that launched none of its kernels fails.
+read just after (a subprocess reports its own); a path that launched
+none of its kernels fails.
 Before the last line come the kernels' JSON record and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 CARD_F32_OPS = 67e12        # H100 SXM f32 (non-tensor) peak, op/s
 CARD_BYTES = 3.35e12        # H100 SXM HBM3 bandwidth, bytes/s
@@ -192,6 +219,451 @@ def ops_per_diagonal(fn, lp: int) -> float:
     return Count.n / (2 * lp + 1)
 
 
+ROOT = Path(__file__).resolve().parent
+# the sector family's hashes in three earlier card runs, before the host
+# scatter summed in one order
+SECTOR_HASHES_BEFORE = ("57501cc5c61c46df", "e4bfdc9515cd074b",
+                        "4998f5afa2dd21ba")
+# `python -m mlprobs_tpu_torch.pipeline.cli ...` that also reports the
+# kernels' launches of its process on its last line
+CLI_WITH_LAUNCHES = (
+    "import json, runpy, sys\n"
+    "from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk\n"
+    "try:\n"
+    "    runpy.run_module('mlprobs_tpu_torch.pipeline.cli',\n"
+    "                     run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    print('LAUNCHES ' + json.dumps({'sweep': wk.sweep.launches,\n"
+    "          'combine': wk.combine.launches}), flush=True)\n"
+)
+# host.profile_posterior of one process at its OpenMP thread count,
+# three calls on the same input (an .npz written by scatter_input)
+SCATTER_RUN = (
+    "import sys, numpy as np\n"
+    "from mlprobs_tpu_torch.utils import host\n"
+    "z = np.load(sys.argv[1])\n"
+    "keys = ('pair_start', 'pair_len', 'a_idx', 'b_idx', 'wts', 'coo_r',\n"
+    "        'coo_c', 'coo_v', 'maps1', 'map1_off', 'maps2', 'map2_off')\n"
+    "out = [host.profile_posterior(int(z['l1']), int(z['l2']),\n"
+    "                              *(z[k] for k in keys),\n"
+    "                              float(z['cutoff_sub']))\n"
+    "       for _ in range(3)]\n"
+    "np.save(sys.argv[2], np.stack(out))\n"
+)
+
+
+def run_cli(args, dev_args=(), timeout=900):
+    """(stdout lines, launches, wall s) of the port's CLI in a subprocess
+    from the checkout's root; a non-zero exit fails the run."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", CLI_WITH_LAUNCHES, *args, *dev_args],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0:
+        fail(f"cli {' '.join(args[:1])} exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    launches = json.loads(lines[-1].split(" ", 1)[1])
+    return lines[:-1], launches, wall
+
+
+def scatter_input(seed=0):
+    """One seeded input of the host scatter at a merge's scale: 48 x 48
+    pairs of 4,000 entries (sorted by row) into a 600 x 600 profile
+    plane, ClustalW-like weights and the realigner's cutoff."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n1 = n2 = 48
+    l1 = l2 = 600
+    maps = []
+    for _ in range(n1 + n2):
+        maps.append(np.sort(rng.choice(600, 470, replace=False))
+                    .astype(np.int32))
+    r, c, v, start, length = [], [], [], [], []
+    off = 0
+    for _ in range(n1 * n2):
+        cells = np.sort(rng.choice(470 * 470, 4000, replace=False))
+        r.append((cells // 470).astype(np.int32))
+        c.append((cells % 470).astype(np.int32))
+        v.append((0.01 + 0.99 * rng.random(4000)).astype(np.float32))
+        start.append(off)
+        length.append(4000)
+        off += 4000
+    moff = np.arange(0, 470 * (n1 + 1), 470, dtype=np.int64)
+    return {
+        "l1": l1, "l2": l2, "cutoff_sub": 0.01,
+        "pair_start": np.array(start, np.int64),
+        "pair_len": np.array(length, np.int64),
+        "a_idx": np.repeat(np.arange(n1, dtype=np.int32), n2),
+        "b_idx": np.tile(np.arange(n2, dtype=np.int32), n1),
+        "wts": rng.random(n1 * n2) / (n1 * n2),
+        "coo_r": np.concatenate(r), "coo_c": np.concatenate(c),
+        "coo_v": np.concatenate(v),
+        "maps1": np.concatenate(maps[:n1]), "map1_off": moff,
+        "maps2": np.concatenate(maps[n1:]), "map2_off": moff,
+    }
+
+
+def scatter_reference(z):
+    """The JAX package's numpy scatter on the same input: each entry
+    adds the f32 product w * v, np.bincount sums in pair order in double,
+    the cutoff subtraction sums in a second double plane added after, one
+    cast to f32."""
+    import numpy as np
+
+    l1, l2 = z["l1"], z["l2"]
+    idx, val = [], []
+    sub = np.zeros((l1, l2))
+    for p in range(len(z["pair_start"])):
+        a, b = z["a_idx"][p], z["b_idx"][p]
+        m1 = z["maps1"][z["map1_off"][a]:z["map1_off"][a + 1]]
+        m2 = z["maps2"][z["map2_off"][b]:z["map2_off"][b + 1]]
+        e = slice(z["pair_start"][p], z["pair_start"][p] + z["pair_len"][p])
+        w = float(z["wts"][p])
+        idx.append(m1[z["coo_r"][e]].astype(np.int64) * l2
+                   + m2[z["coo_c"][e]])
+        val.append(w * z["coo_v"][e])
+        sub[np.ix_(m1, m2[:-1])] -= w * z["cutoff_sub"]
+    out = np.bincount(np.concatenate(idx), weights=np.concatenate(val),
+                      minlength=l1 * l2).reshape(l1, l2)
+    return (out + sub).astype(np.float32)
+
+
+def phase_determinism_host(work):
+    """[determinism]: host.profile_posterior at 1 thread and at all of
+    the machine's threads, three calls each, against the numpy order."""
+    import numpy as np
+
+    z = scatter_input()
+    np.savez(work / "scatter.npz", **z)
+    want = scatter_reference(z)
+    # the threads this process may run on (`nproc`), and the host's count
+    nproc = len(os.sched_getaffinity(0))
+    rec = {"nproc": nproc, "cpu_count": os.cpu_count(),
+           "plane": [z["l1"], z["l2"]],
+           "pairs": len(z["pair_start"]), "entries": len(z["coo_v"])}
+    for threads in sorted({1, nproc}):
+        dst = work / f"scatter_{threads}.npy"
+        env = dict(os.environ, OMP_NUM_THREADS=str(threads))
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", SCATTER_RUN,
+                        str(work / "scatter.npz"), str(dst)],
+                       cwd=ROOT, env=env, check=True, timeout=600)
+        got = np.load(dst)
+        rec[f"threads_{threads}"] = {
+            "process_s": time.perf_counter() - t0,
+            "calls_bit_equal": bool(all(np.array_equal(g, got[0])
+                                        for g in got)),
+            "cells_differing_from_numpy": int((got != want).sum()),
+        }
+    print("[determinism] host scatter: " + json.dumps(rec), flush=True)
+    if not all(v["calls_bit_equal"] and v["cells_differing_from_numpy"] == 0
+               for k, v in rec.items() if k.startswith("threads_")):
+        fail(f"the host scatter depends on its threads: {rec}")
+
+
+def phase_sector_repeat(big, first_hash, stats, drive, deferred):
+    """[determinism]: the sector family through `align_family` a second
+    time in this process, from the [sector] phase's feature statistics
+    (the feature pass is the one stage it does not repeat); its hash
+    against the [sector] phase's.  If they differ, each stage of the path
+    runs twice on the same inputs to name the one whose output varies
+    (recorded; the run fails at its end)."""
+    import numpy as np
+    from mlprobs_tpu_torch.align import aligner, progressive
+    from mlprobs_tpu_torch.align import tree as treelib
+    from mlprobs_tpu_torch.core.alphabet import degap, encode
+    from mlprobs_tpu_torch.core.msa import MSA
+    from mlprobs_tpu_torch.utils.crand import GlibcRand
+
+    rep: dict = {}
+    msa, wall, launched, _, timers = drive(
+        lambda: aligner.align_family(big, config="pnp", stats=stats,
+                                     report=rep, device="cuda"))
+    rec = {"first_hash": first_hash, "second_hash": msa.content_hash(),
+           "hashes_before": SECTOR_HASHES_BEFORE, "wall_s": wall,
+           "stages_s": timers, "launches": launched,
+           "engine": rep.get("consistency_engine")}
+    rec["equal"] = rec["first_hash"] == rec["second_hash"]
+    if not rec["equal"]:
+        # bisect: posteriors, sector relaxation and merge, twice each
+        seqs = [degap(encode(q)) for _, q in big]
+        stats = aligner.family_viterbi_stats(seqs, device="cuda")
+        leave = aligner.mp.adaptive_leave_prob(stats.avg_pid)
+        lens = [len(q) for q in seqs]
+        runs = [aligner.posterior_stage(seqs, "mix", leave, "cuda")
+                for _ in range(2)]
+        same = {"posteriors": all(
+            (runs[0][0][k] != runs[1][0][k]).nnz == 0 for k in runs[0][0])
+            and np.array_equal(runs[0][1], runs[1][1])}
+        posts, dist = runs[0]
+        relaxed = [aligner.sectorlib.relax_sector_device(
+            posts, lens, device="cuda", reps=2) for _ in range(2)]
+        same["sector_relaxation"] = all(
+            (relaxed[0][k] != relaxed[1][k]).nnz == 0 for k in relaxed[0])
+        root = treelib.upgma(dist, variance_id=stats.variance_bit)
+        merged = [progressive.compute_final_alignment(
+            root, MSA.from_unaligned(big), relaxed[0],
+            pid=stats.pid_class, rng=GlibcRand(1), base_reps=100)
+            .content_hash() for _ in range(2)]
+        same["merge"] = merged[0] == merged[1]
+        rec["stage_outputs_equal_over_two_runs"] = same
+        deferred.append(f"the sector family's hash varies: {rec}")
+    print("[determinism] sector family twice: "
+          + json.dumps(rec, default=float), flush=True)
+    return launched
+
+
+def phase_qp_scaled(dev, batch, cuda_ms, records, default_hash, small,
+                    drive, valid_msa, tol):
+    """[qp-scaled]: MLPROBS_QP_EXACT=0, mode "qp" on both kernels with two
+    models (hmm5 + the Vtml200 partition): the kernels against their
+    plain versions at Lp = 512, B = 256 (dense, top-k, top-k with match
+    counts) and their times beside the qpx route's for the same batch;
+    then `run_pipeline` on the smoke family on the card, and the small
+    family on the card and the CPU."""
+    import torch
+    from mlprobs_tpu_torch.align import pairwise
+    from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
+    from mlprobs_tpu_torch.pipeline.driver import run_pipeline
+
+    models = ("hmm5", "partition")
+    lp, b = 512, 256
+    tabs_f, tabs_r = pairwise._wf_tables("qp", None, dev)
+    X, Y, LX, LY = batch(lp, b, seed=21)
+    zero = torch.zeros((b,), dtype=torch.int32, device=dev)
+    flipped = (X.flip(1).contiguous(), Y.flip(1).contiguous(),
+               (lp - LX).to(torch.int32), (lp - LY).to(torch.int32))
+    fk = wk.sweep(X, Y, zero, zero, LX, LY, tabs_f, models=models)
+    rk = wk.sweep(*flipped, LX, LY, tabs_r, models=models, emit_pre=True)
+    fp = wk.sweep_reference(X, Y, zero, zero, LX, LY, tabs_f, models=models)
+    rp = wk.sweep_reference(*flipped, LX, LY, tabs_r, models=models,
+                            emit_pre=True)
+    chk = {"lp": lp, "b": b, "models": list(models), "tables": "qp"}
+    chk["scale_rows_differing"] = sum(
+        int((k["scales"][m] != q["scales"][m]).sum())
+        for k, q in ((fk, fp), (rk, rp)) for m in models)
+    chk["plane_err"] = max(
+        float(((k["planes"][m] - q["planes"][m]).abs().amax(dim=2)
+               / q["planes"][m].abs().amax(dim=2).clamp(min=1e-38)).max())
+        for k, q in ((fk, fp), (rk, rp)) for m in models)
+    chk["l2t_err"] = max(float((k["log2t"][m] - q["log2t"][m]).abs().max())
+                         for k, q in ((fk, fp), (rk, rp)) for m in models)
+    del fp, rp
+    post, sc, nb = wk.combine(fk, rk, LX, LY, models, with_matches=True)
+    post_p, sc_p, nb_p = wk.combine_reference(fk, rk, LX, LY, models,
+                                              with_matches=True)
+    chk["post_err"] = float((post - post_p).abs().max())
+    chk["score_ok"] = torch.allclose(sc, sc_p, rtol=tol["score_rtol"],
+                                     atol=tol["score_atol"])
+    chk["matches_equal"] = bool(torch.equal(nb, nb_p))
+    del post_p
+    vw, lw = wk.wf.topk_skew(post, 16, 0.01)
+    chk["topk_err"], chk["topk_lanes_equal"] = 0.0, True
+    chk["topk_score_matches_equal"] = True
+    for wm in (False, True):
+        out = wk.combine(fk, rk, LX, LY, models, with_matches=wm, topk=16,
+                         cutoff=0.01)
+        chk["topk_err"] = max(chk["topk_err"],
+                              float((out[0] - vw).abs().max()))
+        chk["topk_lanes_equal"] &= bool(torch.equal(out[1][vw > 0],
+                                                    lw[vw > 0]))
+        chk["topk_score_matches_equal"] &= bool(torch.equal(out[2], sc))
+        if wm:
+            chk["topk_score_matches_equal"] &= bool(torch.equal(out[3], nb))
+    print("[qp-scaled] check: " + json.dumps(chk), flush=True)
+    if not (chk["scale_rows_differing"] == 0
+            and chk["plane_err"] <= tol["plane"]
+            and chk["l2t_err"] <= tol["l2t"]
+            and chk["post_err"] <= tol["post"] and chk["score_ok"]
+            and chk["matches_equal"] and chk["topk_err"] <= tol["topk"]
+            and chk["topk_lanes_equal"] and chk["topk_score_matches_equal"]):
+        fail(f"a kernel disagrees with its plain version on the qp "
+             f"tables: {chk}")
+    del fk, rk, post, vw, lw
+    scaled = pairwise._wf_fn(models, False)
+    exact = pairwise._qp_exact_fn(False)
+    times = {
+        "sweep_fwd_ms": cuda_ms(lambda: wk.sweep(
+            X, Y, zero, zero, LX, LY, tabs_f, models=models), 7),
+        "sweep_rev_ms": cuda_ms(lambda: wk.sweep(
+            *flipped, LX, LY, tabs_r, models=models, emit_pre=True), 7),
+        "scaled_batch_ms": cuda_ms(lambda: scaled(
+            X, Y, LX, LY, tabs_f, tabs_r), 7),
+        "qpx_batch_ms": cuda_ms(lambda: exact(
+            X, Y, LX, LY, tabs_f, tabs_r), 1, warm=False),
+    }
+    fk, rk = (wk.sweep(X, Y, zero, zero, LX, LY, tabs_f, models=models),
+              wk.sweep(*flipped, LX, LY, tabs_r, models=models,
+                       emit_pre=True))
+    times["combine_dense_ms"] = cuda_ms(
+        lambda: wk.combine(fk, rk, LX, LY, models), 7)
+    times["combine_topk16_ms"] = cuda_ms(
+        lambda: wk.combine(fk, rk, LX, LY, models, topk=16), 7)
+    times["combine_topk16_matches_ms"] = cuda_ms(
+        lambda: wk.combine(fk, rk, LX, LY, models, with_matches=True,
+                           topk=16), 7)
+    del fk, rk
+    print(f"[qp-scaled] timing Lp={lp} B={b}: " + json.dumps(times),
+          flush=True)
+
+    old = os.environ.get("MLPROBS_QP_EXACT")
+    os.environ["MLPROBS_QP_EXACT"] = "0"
+    try:
+        (msa, rep), wall, launched, peak, timers = drive(
+            lambda: run_pipeline(records, device="cuda"))
+        (smsa, srep), swall, slaunch, _, _ = drive(
+            lambda: run_pipeline(small, device="cuda"))
+        t0 = time.perf_counter()
+        hmsa, hrep = run_pipeline(small, device="cpu")
+        hwall = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("MLPROBS_QP_EXACT", None)
+        else:
+            os.environ["MLPROBS_QP_EXACT"] = old
+    rec = {"family": "synthetic N=48 L=330-470 sub=0.5 indel=0.1 seed=48",
+           "entry": "cli align (run_pipeline), MLPROBS_QP_EXACT=0",
+           "wall_s": wall, "marks_s": rep.timings, "stage_timers_s": timers,
+           "launches": launched, "peak_device_bytes": peak,
+           "engines": rep.engines, "whole_family_realign":
+               rep.whole_family_realign,
+           "valid": valid_msa(msa, records), "hash": rep.final_hash,
+           "default_route_hash": default_hash,
+           "block_errors": rep.block_errors, "error": rep.error}
+    print("[qp-scaled] pipeline: " + json.dumps(rec, default=float),
+          flush=True)
+    srec = {"family": "synthetic N=6 L=40-90 sub=0.2 indel=0.05 seed=5",
+            "cuda": {"wall_s": swall, "hash": srep.final_hash,
+                     "launches": slaunch},
+            "cpu": {"wall_s": hwall, "hash": hrep.final_hash},
+            "hashes_equal": srep.final_hash == hrep.final_hash}
+    print("[qp-scaled] small family: " + json.dumps(srec), flush=True)
+    if (not rec["valid"] or rep.crash_fallback or rep.block_errors
+            or min(launched.values()) < 1):
+        fail(f"the scaled qp route's pipeline failed on the card: {rec}")
+    if not srec["hashes_equal"] or not valid_msa(smsa, small) \
+            or srep.crash_fallback or srep.block_errors:
+        fail(f"the scaled qp route differs on the card and the CPU: {srec}")
+    return launched, times
+
+
+def phase_scan(dev, seqs, leave, wk_posterior_dense):
+    """[scan]: the row-scan posteriors (mix: hmm5, partition, local) of 4
+    pairs of the smoke family on the card against the CUDA combine's
+    dense posterior, at the JAX package's tolerance between the two
+    formulations (rtol 2e-3, atol 2e-5)."""
+    import torch
+    from mlprobs_tpu_torch.align import pairwise
+
+    pairs = [(0, 1), (2, 3), (4, 5), (6, 7)]
+    lp = pairwise._bucket_len(max(len(seqs[k]) for p in pairs for k in p))
+    (chunk, X, Y, LX, LY), = list(pairwise.iter_pair_batches(
+        seqs, pairs, dev, force_lp=lp))
+    # the scan engine's arithmetic: the scans in float64, then f32
+    params = pairwise._scan_params("mix", leave, dev, torch.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    posts = [pairwise._SCAN_MODELS[m](X, Y, LX, LY, params[m]).float()
+             for m in ("hmm5", "partition", "local")]
+    scan = torch.sqrt(sum(p * p for p in posts) / 3)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    kern = wk_posterior_dense(X, Y, LX, LY, leave)
+    err = (scan - kern).abs()
+    excess = err - (2e-5 + 2e-3 * kern.abs())
+    rec = {"pairs": pairs, "lp": lp, "lengths": [[int(a), int(b)]
+           for a, b in zip(LX.tolist(), LY.tolist())],
+           "max_abs_err": [float(e.max()) for e in err],
+           "max_excess_over_tol": float(excess.max()),
+           "row_scan_s": scan_s}
+    print("[scan] row scans vs combine (mix): " + json.dumps(rec),
+          flush=True)
+    if rec["max_excess_over_tol"] > 0:
+        fail(f"the row-scan posteriors disagree with combine: {rec}")
+    return rec
+
+
+def phase_bench(work, families, golden_msa, dev_args):
+    """[bench]: `cli bench` in a subprocess on a suite this phase writes,
+    scored against the [pipeline] phase's MSA of the first family."""
+    from mlprobs_tpu_torch.core.fasta import write_fasta
+
+    suite = work / "bench" / "TEST" / "synthetic"
+    (suite / "in").mkdir(parents=True)
+    golden = work / "bench" / "golden"
+    golden.mkdir()
+    for name, recs in families.items():
+        write_fasta(suite / "in" / name, recs, width=0)
+    first = next(iter(families))
+    write_fasta(golden / first, golden_msa.to_records(), width=0)
+    lines, launched, wall = run_cli(
+        ["bench", str(suite), "--golden", str(golden), "--out",
+         str(work / "bench" / "out")], dev_args, timeout=600)
+    summary = json.loads(lines[-1])
+    rec = {"suite": {k: "synthetic N=48 L=330-470 sub=0.5 indel=0.1 "
+                     f"seed={k[-2:]}" for k in families},
+           "lines": lines[:-1], "summary": summary, "wall_s": wall,
+           "launches": launched}
+    print("[bench] " + json.dumps(rec), flush=True)
+    line = next((ln for ln in lines if ln.startswith(first + ":")), "")
+    if "sp=1.000 tc=1.000" not in line or summary["families"] != 2 \
+            or min(launched.values()) < 1:
+        fail(f"cli bench did not score the [pipeline] MSA as itself: {rec}")
+    return launched
+
+
+def parse_clustal(text):
+    """{name: aligned row} of write_clustal's text."""
+    rows: dict = {}
+    for line in text.splitlines()[2:]:
+        if line.strip():
+            name, chunk = line.split()
+            rows[name] = rows.get(name, "") + chunk
+    return rows
+
+
+def phase_annot(work, records, dev_args):
+    """[annot]: `cli base --config quickprobs --annot --clustalw
+    --autosave 1` on the smoke family (the realigner, whose refinement
+    autosaves): one score in 0-200 per column, and a ClustalW file that
+    parses back into the final MSA (the last autosave).  The realigner's
+    qpx route runs the sweep kernel alone (its hmm5 half is plain torch),
+    so only the sweep must have launched."""
+    from mlprobs_tpu_torch.core.fasta import read_fasta, write_fasta
+
+    inp, out = work / "annot_in.fa", work / "annot_out.aln"
+    write_fasta(inp, records, width=0)
+    _, launched, wall = run_cli(
+        ["base", str(inp), str(out), "--config", "quickprobs", "--annot",
+         str(work / "annot.txt"), "--clustalw", "--autosave", "1"],
+        dev_args)
+    rows = parse_clustal(out.read_text())
+    scores = [int(v) for v in (work / "annot.txt").read_text().split()]
+    saves = sorted(work.glob("annot_out.aln_r*"),
+                   key=lambda q: int(q.name.rsplit("_r", 1)[1]))
+    last = dict(read_fasta(saves[-1])) if saves else {}
+    by_header = dict(records)
+    rec = {"family": "synthetic N=48 L=330-470 sub=0.5 indel=0.1 seed=48",
+           "wall_s": wall, "launches": launched, "columns":
+               len(next(iter(rows.values()))) if rows else 0,
+           "annot_lines": len(scores),
+           "annot_range": [min(scores), max(scores)] if scores else None,
+           "autosaves": len(saves),
+           "clustal_equals_last_autosave": rows == last,
+           "rows_degap_to_inputs": rows.keys() == by_header.keys() and all(
+               r.replace("-", "") == by_header[h] for h, r in rows.items())}
+    print("[annot] " + json.dumps(rec), flush=True)
+    if not (rec["rows_degap_to_inputs"] and rec["clustal_equals_last_autosave"]
+            and rec["annot_lines"] == rec["columns"] > 0
+            and 0 <= rec["annot_range"][0] <= rec["annot_range"][1] <= 200
+            and launched["sweep"] >= 1):
+        fail(f"cli base --annot --clustalw --autosave failed: {rec}")
+    return launched
+
+
 def main() -> None:
     try:
         import torch
@@ -221,6 +693,15 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"[device] {smi} | torch {torch.__version__} | "
           f"cuda {torch.version.cuda}", flush=True)
+    # scratch files of the phases that drive the CLI or other processes
+    work = ROOT / "_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    deferred: list = []   # failures recorded so that later phases still run
+
+    def clock(phase):
+        print(f"[clock] {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     info = build.build_all()
@@ -231,6 +712,7 @@ def main() -> None:
     wk.reset_launch_counts()
 
     # ---- 3. kernels against their plain versions -------------------------
+    clock("check")
     def batch(lp, b, seed):
         rng = torch.Generator().manual_seed(seed)
         lens = torch.randint(lp // 2, lp + 1, (b,), generator=rng)
@@ -327,8 +809,12 @@ def main() -> None:
             worst["combine"] = max(worst["combine"], e_post)
 
     # timing at the main path's shapes: Lp=512, the budgeted batch, mix
-    def cuda_ms(fn, reps):
-        fn()
+    clock("timing")
+    def cuda_ms(fn, reps, warm=True):
+        # warm=False: one timed call alone, for the plain-torch qpx loop,
+        # which compiles nothing and takes seconds a call
+        if warm:
+            fn()
         torch.cuda.synchronize()
         out = []
         for _ in range(reps):
@@ -408,6 +894,7 @@ def main() -> None:
     del fk, rk, fk2, rk2, comb_modes, f_, r_, X2, Y2, LX2, LY2
 
     # ---- 4. the main path --------------------------------------------------
+    clock("main")
     records = synthetic_family(48, 330, 470, sub=0.5, indel=0.1, seed=48)
     report: dict = {}
     STATS.reset()
@@ -473,6 +960,7 @@ def main() -> None:
     del t_k, t_p, both, one
 
     # ---- 5. [qp]: the realigner's posterior batch ---------------------------
+    clock("qp")
     qtf, qtr = pairwise._wf_tables("qp", None, dev)
     qtf_c, qtr_c = pairwise._wf_tables("qp", None, "cpu")
     X, Y, LX, LY = batch(128, 8, seed=128)
@@ -498,18 +986,16 @@ def main() -> None:
     base_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t_batch = cuda_ms(lambda: pairwise._qpx_combined_skew(
-        X, Y, LX, LY, qtf, qtr), 1)
+        X, Y, LX, LY, qtf, qtr), 1, warm=False)
     qp_peak = torch.cuda.max_memory_allocated() - base_bytes
-    t_fb = cuda_ms(lambda: qpx.hmm5_fb_qpx(X, Y, LX, LY, *p5), 1)
+    t_fb = cuda_ms(lambda: qpx.hmm5_fb_qpx(X, Y, LX, LY, *p5), 1,
+                   warm=False)
     t_sw = cuda_ms(lambda: wk.sweeps(X, Y, LX, LY, qtf, qtr,
                                      ("partition",)), 3)
-    Xs, Ys, LXs, LYs = (t[:32].contiguous() for t in (X, Y, LX, LY))
-    t_fb32 = cuda_ms(lambda: qpx.hmm5_fb_qpx(Xs, Ys, LXs, LYs, *p5), 1)
-    del Xs, Ys, LXs, LYs
     per_cell = qp_peak / (bq * lp * lp)
     qp_rec = {"lp": lp, "b": bq, "qpx_fb_ms": t_fb,
               "partition_sweeps_ms": t_sw, "qp_batch_ms": t_batch,
-              "qpx_fb_ms_b32": t_fb32, "peak_bytes": qp_peak,
+              "peak_bytes": qp_peak,
               "peak_bytes_per_pair_cell": per_cell, "budget_per_cell": 80}
     print("[qp] timing: " + json.dumps(qp_rec), flush=True)
     if per_cell > 80:
@@ -549,6 +1035,7 @@ def main() -> None:
             timers
 
     # ---- 6. [pipeline]: cli align's path on the smoke family -------------
+    clock("pipeline")
     (pmsa, prep), pwall, plaunch, ppeak, ptimers = drive(
         lambda: run_pipeline(records, device="cuda"))
     decisions = {k: getattr(prep, k) for k in (
@@ -600,6 +1087,7 @@ def main() -> None:
         fail(f"the realigner's consistency left the device: {qrec}")
 
     # ---- 8. [pipeline-cpu]: the same decisions on the card and the CPU ---
+    clock("pipeline-cpu")
     # The small family takes the whole-family realign, as the smoke family
     # does; its second run forces classifier 3 to RIR (as the CPU tests
     # do) so that the block realign runs on the card too.
@@ -657,6 +1145,7 @@ def main() -> None:
         fail(f"the two-sequence realign failed on the card: {tlaunch}")
 
     # ---- 9. [np]: the non-progressive base aligner ------------------------
+    clock("np")
     nrep: dict = {}
     nmsa, nwall, nlaunch, npeak, ntimers = drive(
         lambda: aligner.align_family(records, config="pnp", strategy=1,
@@ -697,6 +1186,7 @@ def main() -> None:
         fail(f"the NP family's pipeline did not run every kernel: {claunch}")
 
     # ---- 10. [sector]: a family over the dense tensor's budget -------------
+    clock("sector")
     big = synthetic_family(96, 330, 470, sub=0.5, indel=0.1, seed=96)
     srep: dict = {}
     relax_real = aligner.sectorlib.relax_sector_device
@@ -714,13 +1204,21 @@ def main() -> None:
             torch.cuda.max_memory_allocated() - base)
         return out
 
+    stats_real = aligner.family_viterbi_stats
+
+    def stats_kept(*a, **kw):
+        relax_seen["stats"] = stats_real(*a, **kw)
+        return relax_seen["stats"]
+
     aligner.sectorlib.relax_sector_device = relax_measured
+    aligner.family_viterbi_stats = stats_kept
     try:
         smsa, swall, slaunch, _, stimers = drive(
             lambda: aligner.align_family(big, config="pnp", report=srep,
                                          device="cuda"))
     finally:
         aligner.sectorlib.relax_sector_device = relax_real
+        aligner.family_viterbi_stats = stats_real
     plan = srep.get("sector", {})
     rec = {"family": "synthetic N=96 L=330-470 sub=0.5 indel=0.1 seed=96",
            "wall_s": swall, "stages_s": stimers, "launches": slaunch,
@@ -763,13 +1261,23 @@ def main() -> None:
         fail(f"sector relaxation on the card disagrees with the CPU: {rec}")
     del sposts, on_card, on_cpu
 
-    # ---- 11. [long]: past 8,192 lanes ---------------------------------------
-    # The check runs at Lp = 8,192, the short instances' last length, and
-    # at 8,320, the length the long family below takes: past the short
-    # instances, so the sweep at 32 lanes a thread and combine's tiled DP,
-    # in each mode the path runs.  The log2 totals get 2e-4 or 1e-6 of
-    # |l2t|, whichever is larger (past |l2t| = 2,048 one f32 step is
-    # 2.4e-4, and the two sum the local model in other orders).
+    # ---- 11. [determinism]: the host scatter and the sector family --------
+    clock("determinism")
+    phase_determinism_host(work)
+    dlaunch = phase_sector_repeat(big, smsa.content_hash(),
+                                  relax_seen["stats"], drive, deferred)
+
+    # ---- 12. [long]: past 8,192 lanes ---------------------------------------
+    clock("long")
+    # The check runs at Lp = 8,320, the length the long family below
+    # takes: past the short instances, so the sweep at 32 lanes a thread
+    # and combine's tiled DP, in each mode the path runs (the card tests
+    # hold 8,192, the short instances' last length, and 8,320 as well;
+    # here one length keeps the run near half its limit, the plain
+    # versions' 16,641-diagonal loops being the slow part).  The log2
+    # totals get 2e-4 or 1e-6 of |l2t|, whichever is larger (past |l2t| =
+    # 2,048 one f32 step is 2.4e-4, and the two sum the local model in
+    # other orders).
     long_rec = {}
     models = MODEL_SETS["mix"]
     nm = len(models)
@@ -829,11 +1337,10 @@ def main() -> None:
         worst["combine"] = max(worst["combine"], e_post)
         del fk, rk, post_k, vals_w, lanes_w
 
-    for lp_chk in (8192, 8320):
-        long_check(lp_chk)
+    long_check(8320)
     # the kernels' times at B=1 beside their byte bounds
     long_times = {}
-    for lp_ in (8192, 8320, 12288, 16384):
+    for lp_ in (8192, 8320):
         X, Y, LX, LY = batch(lp_, 1, seed=lp_)
         z1 = torch.zeros((1,), dtype=torch.int32, device=dev)
         D_, W_ = 2 * lp_ + 1, lp_ + 1
@@ -855,14 +1362,14 @@ def main() -> None:
     print("[long] mix B=1 times: " + json.dumps(long_times), flush=True)
     # cli base on a family with one sequence past 8,192 residues
     lfam = synthetic_family(3, 8250, 8250, sub=0.3, indel=0.05, seed=82)
-    lfam = [lfam[0], (lfam[1][0], lfam[1][1][2000:3500]),
-            (lfam[2][0], lfam[2][1][5000:6200])]
+    lfam = [lfam[0], (lfam[1][0], lfam[1][1][2000:2700]),
+            (lfam[2][0], lfam[2][1][5000:5500])]
     lrep: dict = {}
     lmsa, lwall, llaunch, lpeak, ltimers = drive(
         lambda: aligner.align_family(lfam, config="pnp", report=lrep,
                                      device="cuda"))
     rec = {"family": "synthetic N=3 L=8250 sub=0.3 indel=0.05 seed=82, "
-                     "two cut to 1,500 and 1,200 residues",
+                     "two cut to 700 and 500 residues",
            "entry": "cli base (align_family config=pnp)",
            "wall_s": lwall, "stages_s": ltimers, "launches": llaunch,
            "report": lrep, "peak_device_bytes": lpeak,
@@ -871,6 +1378,34 @@ def main() -> None:
     print("[long] " + json.dumps(rec, default=float), flush=True)
     if not valid_msa(lmsa, lfam) or min(llaunch.values()) < 1:
         fail(f"the long family did not align on the card: {rec}")
+
+    # ---- 13. [qp-scaled]: MLPROBS_QP_EXACT=0 -------------------------------
+    clock("qp-scaled")
+    qlaunch_scaled, _ = phase_qp_scaled(
+        dev, batch, cuda_ms, records, prep.final_hash, small, drive,
+        valid_msa, TOL)
+
+    # ---- 14. [scan]: the row-scan posteriors against combine ---------------
+    clock("scan")
+    def kernel_dense(X, Y, LX, LY, leave_prob):
+        tf, tr = pairwise._wf_tables("mix", leave_prob, dev)
+        post, _ = wk.posterior(X, Y, LX, LY, tf, tr,
+                               models=MODEL_SETS["mix"], with_matches=False)
+        return wk.wf.unskew_posterior(post)
+
+    phase_scan(dev, seqs, leave, kernel_dense)
+
+    # ---- 15. [bench] and [annot]: the CLI in a subprocess ------------------
+    clock("bench")
+    bench_fams = {f"fam{k}": synthetic_family(48, 330, 470, sub=0.5,
+                                              indel=0.1, seed=k)
+                  for k in (48, 49)}
+    blaunch = phase_bench(work, bench_fams, pmsa, ())
+    clock("annot")
+    alaunch = phase_annot(work, records, ())
+    shutil.rmtree(work, ignore_errors=True)
+    if deferred:
+        fail("; ".join(deferred))
 
     kernels = []
     for name, src, replaces in (
@@ -886,7 +1421,11 @@ def main() -> None:
                                  "pipeline": plaunch[name],
                                  "np": nlaunch[name],
                                  "sector": slaunch[name],
-                                 "long": llaunch[name]},
+                                 "sector_again": dlaunch[name],
+                                 "long": llaunch[name],
+                                 "qp_scaled": qlaunch_scaled[name],
+                                 "bench": blaunch[name],
+                                 "annot": alaunch[name]},
             "max_abs_err": worst[name], "ms": timing[name][0],
             "plain_ms": timing[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,

@@ -32,6 +32,7 @@ from mlprobs_tpu_torch.align import tree as treelib
 from mlprobs_tpu_torch.align import tree_extra
 from mlprobs_tpu_torch.align.graph import graph_align
 from mlprobs_tpu_torch.align.refine_np import np_refinement
+from mlprobs_tpu_torch.align.traceback import viterbi_traceback
 from mlprobs_tpu_torch.core.config import DEFAULT as _CFG
 from mlprobs_tpu_torch.core.msa import MSA
 from mlprobs_tpu_torch.models import params as mp
@@ -59,7 +60,9 @@ class FamilyStats:
 def family_viterbi_stats(
     seqs: list[np.ndarray], with_features: bool = False, device="cuda",
 ) -> FamilyStats:
-    """All-pairs local Viterbi PID statistics, computed on the device.
+    """All-pairs local Viterbi PID statistics, computed on the device (the
+    wavefront Viterbi; under the `scan` engine the row-scan Viterbi with a
+    host traceback, as the JAX package).
 
     With `with_features`, also aggregates the `-G` feature-pass numbers
     (MSA.cpp:646-762): mean per-column BLOSUM profile over pairwise
@@ -77,6 +80,30 @@ def family_viterbi_stats(
     cap = 2 * max(len(s) for s in seqs) + 2
     col_acc = np.zeros(cap, dtype=np.float64)
     sp_sum, sp_cols = 0.0, 0.0
+    if pairwise._engine() == "scan":
+        # the row-scan Viterbi's directions, traced back on the host
+        for chunk, dirs, ends in pairwise.viterbi_batches(seqs, pair_list,
+                                                          device):
+            for k, (i, j) in enumerate(chunk):
+                path = viterbi_traceback(dirs[k], int(ends[k]),
+                                         len(seqs[i]), len(seqs[j]))
+                plen = len(path)
+                total_len += plen
+                max_len = max(max_len, plen)
+                a = seqs[i][np.cumsum(path != 2) - 1]
+                b = seqs[j][np.cumsum(path != 1) - 1]
+                is_b = path == 0
+                matches = int(((a == b) & is_b).sum())
+                pids_all.append(np.array([matches / plen]))
+                scores = np.where(is_b & (a < 20) & (b < 20), bl[a, b], 0.0)
+                scores = np.where(scores < 10, scores, 0.0)
+                col_acc[:plen] += scores
+                sp_sum += float(scores.sum())
+                sp_cols += plen
+        return _finish_family_stats(
+            pids_all, n, npairs, total_len, max_len, col_acc,
+            sp_sum, sp_cols, with_features,
+        )
     # only per-pair scalars and the per-step score table cross to the host
     for chunk, plen, matches, scores_rev in (
         pairwise.viterbi_stat_batches(seqs, pair_list, bl, device)
@@ -204,7 +231,8 @@ def align_family(
         report = {}
     report["device"] = str(device)
     report["posterior_engine"] = (
-        "cuda-kernels" if device.type == "cuda" else "plain-torch"
+        "row-scan" if pairwise._engine() == "scan"
+        else "cuda-kernels" if device.type == "cuda" else "plain-torch"
     )
     msa = MSA.from_unaligned(records)
     seqs = [np.asarray(s[s >= 0]) for s in msa.rows]

@@ -15,11 +15,29 @@ Model selection per family identity class (pdoAlign, MSA.cpp:941-1010):
 Mode "qp" is the QuickProbs-role realigner's posterior: the qpx hmm5
 posterior (ops/qpx.py, the reference's f32 log-space arithmetic) and the
 sweep kernel's partition posterior on the Vtml200 tables, filtered to
-[0.001, 1], RMS-combined (PosteriorStage.cpp:123-196).
+[0.001, 1], RMS-combined (PosteriorStage.cpp:123-196).  With
+MLPROBS_QP_EXACT=0, as in the JAX package, mode "qp" runs the two kernels
+on the hmm5 and Vtml200 partition models instead, with no filter.
+
+MLPROBS_POSTERIOR_ENGINE selects the engine of the posteriors:
+  "pallas" (the default) — the CUDA kernels, or their plain versions on
+             the CPU;
+  "scan"   — the row-scan models (ops/pairhmm.py, ops/partition.py) with
+             the dense MWT fill (ops/mwt.py) and a per-row top-k: an
+             independent formulation of the same posteriors, as the JAX
+             package's "scan" engine.  The scans run in float64: in f32
+             their log-space sums drift from the kernels' posteriors by
+             more than rtol 2e-3 at a few hundred residues (the JAX
+             package's f32 scans as well); in f64 they stay well inside
+             it.  It builds no consistency tensor, so the consistency
+             runs on the host.
+The JAX package's "native" host engine is not ported (the posteriors run
+on the card), and its "wavefront" engine is the CPU path of "pallas".
 """
 from __future__ import annotations
 
 import functools
+import os
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -28,17 +46,17 @@ import torch
 from mlprobs_tpu_torch.core.config import DEFAULT as _CFG
 from mlprobs_tpu_torch.core.config import engine_budgets
 from mlprobs_tpu_torch.models import params as mp
-from mlprobs_tpu_torch.ops import qpx, wavefront
+from mlprobs_tpu_torch.ops import (mwt, pairhmm, partition, qpx, viterbi,
+                                   wavefront)
 from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
+from mlprobs_tpu_torch.ops.viterbi import VIT_INIT
 from mlprobs_tpu_torch.utils import device as devlib
 
 LEN_BUCKET = _CFG.engine.length_bucket
 TOPK = _CFG.engine.topk_per_row
 CUTOFF = _CFG.aligner.posterior_cutoff   # SparseMatrix.h:14
 EXTRACT_TOPK = _CFG.engine.extract_topk
-# the Viterbi feature pass's initial distribution (ops/viterbi.py VIT_INIT)
-VIT_INIT = np.log(np.array([0.6080327034, 0.1959836632, 0.1959836632],
-                           dtype=np.float64)).astype(np.float32)
+ENGINES = ("pallas", "scan")
 
 _MODE_MODELS = {
     "mix": ("hmm5", "partition", "local"),
@@ -47,6 +65,24 @@ _MODE_MODELS = {
     "local": ("local",),
     "partition": ("partition",),
 }
+
+
+def _engine() -> str:
+    """The posterior engine MLPROBS_POSTERIOR_ENGINE names ("pallas" when
+    unset); any other value raises."""
+    env = os.environ.get("MLPROBS_POSTERIOR_ENGINE") or "pallas"
+    if env not in ENGINES:
+        raise ValueError(
+            f"MLPROBS_POSTERIOR_ENGINE={env!r}: the port's posterior "
+            f"engines are {ENGINES} (the CUDA kernels, the row-scan models)")
+    return env
+
+
+def _qp_exact() -> bool:
+    """Mode "qp" on the qpx route (the QuickProbs binary's arithmetic,
+    the default) unless MLPROBS_QP_EXACT=0, which takes it to the
+    scaled-probability kernels, as the JAX package's `_qp_exact`."""
+    return os.environ.get("MLPROBS_QP_EXACT", "1") != "0"
 
 
 def _bucket_len(n: int) -> int:
@@ -174,6 +210,48 @@ def _qpx_combined_skew(X, Y, LX, LY, tabs_f, tabs_r):
     pp.mul_(pp).add_(ph.mul_(ph))
     del ph
     return pp.mul_(0.5).sqrt_()
+
+
+_SCAN_MODELS = {
+    "hmm5": pairhmm.hmm5_posterior,
+    "local": pairhmm.local_posterior,
+    "partition": partition.partition_posterior,
+}
+
+
+def _scan_params(mode: str, leave_prob: float | None, device,
+                 dtype=torch.float32) -> dict:
+    """Model -> log tables as `dtype` tensors on `device`, for the row
+    scans ("qp" takes the Vtml200 partition model)."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), dtype=dtype,
+                               device=device)
+
+    h5, lo, pt = mp.log_tables(mode, leave_prob)
+    return {name: {k: t(v) for k, v in tab.items()}
+            for name, tab in (("hmm5", h5), ("local", lo),
+                              ("partition", pt))}
+
+
+def _scan_fn(models: tuple[str, ...], with_matches: bool):
+    """Row-scan posterior stage of one batch: each model's posterior (in
+    the tables' dtype, then f32), the RMS, the MWT fill and the cutoff
+    per-row top-k: (vals (B, Lp, k), idx, score[, nb])."""
+
+    def run(X, Y, LX, LY, params):
+        posts = [_SCAN_MODELS[m](X, Y, LX, LY, params[m]).float()
+                 for m in models]
+        if len(posts) == 1:
+            post = posts[0]
+        else:
+            post = torch.sqrt(sum(p * p for p in posts) / len(posts))
+        dirs, score = mwt.mwt_align(post, LX, LY)
+        vals, idx = _row_topk(torch.where(post >= CUTOFF, post, 0.0), TOPK)
+        if with_matches:
+            return vals, idx, score, mwt.count_matches(dirs, LX, LY)
+        return vals, idx, score
+
+    return run
 
 
 def _qp_exact_fn(with_matches: bool):
@@ -337,11 +415,14 @@ def device_posterior_tensor(
     if over:
         report["consistency_downgrade"] = f"over_budget:{over >> 20}MiB"
         return None
+    if _engine() == "scan":
+        report["consistency_downgrade"] = "engine:scan"
+        return None
     lp = _bucket_len(max(len(s) for s in seqs))
 
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
     tabs_f, tabs_r = _wf_tables(mode, leave_prob, device)
-    fn = (_qp_exact_dense_fn() if mode == "qp"
+    fn = (_qp_exact_dense_fn() if mode == "qp" and _qp_exact()
           else _wf_dense_fn(_MODE_MODELS[mode]))
     S = torch.zeros((n, n, lp, lp), dtype=torch.float32, device=device)
     dist = np.zeros((n, n))
@@ -369,21 +450,37 @@ def all_pairs_posteriors(
     device="cuda",
 ) -> Iterator[tuple]:
     """Yield ((i, j), sparse posterior csr (li, lj), mwt_score[, n_matches])
-    per pair.  A pair too long for a batch of several runs at B = 1 on
-    the same device."""
+    per pair, from the engine that `_engine()` names.  A pair too long
+    for a batch of several runs at B = 1 on the same device."""
     device = devlib.resolve(device)
     n = len(seqs)
     if pairs is None:
         pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
-    tabs_f, tabs_r = _wf_tables(mode, leave_prob, device)
-    fn = (_qp_exact_fn(with_matches) if mode == "qp"
-          else _wf_fn(_MODE_MODELS[mode], with_matches))
+    if _engine() == "scan":
+        params = _scan_params(mode, leave_prob, device, torch.float64)
+        scan = _scan_fn(_MODE_MODELS[mode], with_matches)
+
+        def run(X, Y, LX, LY):
+            return scan(X, Y, LX, LY, params)
+
+        def to_csr(vals, idx, k, li, lj):
+            return topk_to_csr(vals[k], idx[k], li, lj)
+    else:
+        tabs_f, tabs_r = _wf_tables(mode, leave_prob, device)
+        fn = (_qp_exact_fn(with_matches) if mode == "qp" and _qp_exact()
+              else _wf_fn(_MODE_MODELS[mode], with_matches))
+
+        def run(X, Y, LX, LY):
+            return fn(X, Y, LX, LY, tabs_f, tabs_r)
+
+        def to_csr(vals, lanes, k, li, lj):
+            return topk_diag_to_csr(vals[:, k], lanes[:, k], li, lj)
     for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device):
-        out = [o.cpu().numpy() for o in fn(X, Y, LX, LY, tabs_f, tabs_r)]
-        vals, lanes, score = out[:3]
+        out = [o.cpu().numpy() for o in run(X, Y, LX, LY)]
+        vals, idx, score = out[:3]
         for k, (i, j) in enumerate(chunk):
             li, lj = len(seqs[i]), len(seqs[j])
-            csr = topk_diag_to_csr(vals[:, k], lanes[:, k], li, lj)
+            csr = to_csr(vals, idx, k, li, lj)
             if with_matches:
                 yield (i, j), csr, float(score[k]), int(out[3][k])
             else:
@@ -416,3 +513,19 @@ def viterbi_stat_batches(
         )
         yield (chunk, plen.cpu().numpy(), matches.cpu().numpy(),
                scores_rev.cpu().numpy())
+
+
+def viterbi_batches(
+    seqs: Sequence[np.ndarray],
+    pairs: Sequence[tuple[int, int]],
+    device="cuda",
+) -> Iterator[tuple[list[tuple[int, int]], np.ndarray, np.ndarray]]:
+    """Yield (pair_chunk, dirs (nb, Lp+1, Lp+1) int8, end_states (nb,))
+    of the row-scan Viterbi (ops/viterbi.viterbi_local) on the host, for
+    the host traceback: the `scan` engine's feature pass, as the JAX
+    package's `viterbi_batches`."""
+    device = devlib.resolve(device)
+    lo = _scan_params("mix", None, device)["local"]
+    for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device):
+        dirs, ends, _ = viterbi.viterbi_local(X, Y, LX, LY, lo)
+        yield chunk, dirs.cpu().numpy(), ends.cpu().numpy()

@@ -34,20 +34,22 @@ class PostPool:
     Built once per posts dict so that the host profile builder can
     scatter every inter-group pair without per-pair Python/scipy work;
     `index[(la, lb)]` -> (start, len) into the shared (r, c, v) pools
-    (both orientations stored)."""
+    (both orientations stored, each sorted by row, as the host scatter
+    requires)."""
 
     def __init__(self, posts: dict[tuple[int, int], sp.csr_matrix]):
         rs, cs, vs = [], [], []
         self.index: dict[tuple[int, int], tuple[int, int]] = {}
         off = 0
         for (i, j), s in posts.items():
-            coo = s.tocoo()
+            coo = s.tocsr().tocoo()          # row-major: sorted by row
             r = coo.row.astype(np.int32)
             c = coo.col.astype(np.int32)
             v = coo.data.astype(np.float32)
-            rs += [r, c]
-            cs += [c, r]
-            vs += [v, v]
+            t = np.argsort(c, kind="stable")
+            rs += [r, c[t]]
+            cs += [c, r[t]]
+            vs += [v, v[t]]
             self.index[(i, j)] = (off, len(v))
             off += len(v)
             self.index[(j, i)] = (off, len(v))
@@ -97,7 +99,7 @@ def build_profile_posterior(
     lens = np.empty(n1 * n2, np.int64)
     a_idx = np.empty(n1 * n2, np.int32)
     b_idx = np.empty(n1 * n2, np.int32)
-    wts = np.empty(n1 * n2, np.float32)
+    wts = np.empty(n1 * n2, np.float64)
     k = 0
     for a in range(n1):
         for b in range(n2):

@@ -2,17 +2,16 @@
 // dense profile posterior, and the weighted profile-posterior scatter.
 //
 // The port's own copy of the JAX package's native runtime functions
-// mwt_fill / mwt_fill_dense, mwt_traceback and profile_posterior
-// (native/mlprobs_native.cpp), with the same arithmetic, so that the
-// port's merges run the same host code as the JAX package's default.
+// mwt_fill / mwt_fill_dense and mwt_traceback
+// (native/mlprobs_native.cpp), with the same arithmetic.  The scatter
+// keeps the native runtime's interface but sums in the JAX package's
+// numpy order, so that its plane does not depend on the thread count.
 // Built with g++ at first use by utils/host.py.
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <utility>
 #include <vector>
-#ifdef _OPENMP
-#include <omp.h>
-#endif
 
 namespace {
 
@@ -82,18 +81,27 @@ int mwt_traceback(const int8_t* dirs, int stride, int lx, int ly,
 }
 
 // Weighted profile-posterior scatter (BuildPosterior,
-// ProbabilisticModel.h:1197-1379) into a caller-zeroed (l1, l2) plane;
-// optionally subtract w * cutoff at every mapped cell (the QuickProbs
+// ProbabilisticModel.h:1197-1379) into an (l1, l2) plane; optionally
+// subtract w * cutoff at every mapped cell (the QuickProbs
 // posteriorCutoff subtraction over ungapped rows x the first l2-1
 // mapped columns).
 //
 // COO pool layout: pair p owns entries [pair_start[p],
 // pair_start[p] + pair_len[p]) of coo_r / coo_c / coo_v (ungapped 0-based
-// coordinates in its two sequences).  maps1/maps2 pools hold each group
-// member's ungapped-position -> profile-column map.
+// coordinates in its two sequences), sorted by coo_r.  maps1/maps2 pools
+// hold each group member's ungapped-position -> profile-column map
+// (ascending).
 //
-// OpenMP over pairs with per-thread accumulation planes, reduced at the
-// end (the reference's row-block parallel variant).
+// The plane is the JAX package's numpy path's bit for bit
+// (build_profile_posterior without a pool): an entry adds the f32
+// product (float)w * v, a cell sums its entries in double in pair order
+// (np.bincount), the subtractions w * cutoff sum in double in pair order
+// into a second plane that is added after, and each cell is cast to f32
+// once.  OpenMP splits the plane into bands of rows and each band walks
+// every pair in order, so no cell's order of additions depends on the
+// thread count or the schedule.  A pair's entries in a band are one
+// contiguous run (the rows are sorted and the maps ascend), found by
+// binary search, so the work stays O(entries + bands x pairs x log).
 void profile_posterior(
     int l1, int l2,
     int npairs,
@@ -101,57 +109,57 @@ void profile_posterior(
     const int64_t* pair_len,
     const int32_t* a_idx,
     const int32_t* b_idx,
-    const float* wts,
+    const double* wts,
     const int32_t* coo_r,
     const int32_t* coo_c,
     const float* coo_v,
     const int32_t* maps1, const int64_t* map1_off,
     const int32_t* maps2, const int64_t* map2_off,
-    float cutoff_sub,
+    double cutoff_sub,
     float* out
 ) {
+    constexpr int kBand = 8;
     const size_t plane = (size_t)l1 * l2;
-#ifdef _OPENMP
-    int nthreads = omp_get_max_threads();
-#else
-    int nthreads = 1;
-#endif
-    std::vector<std::vector<double>> acc(
-        nthreads, std::vector<double>(plane, 0.0));
-
+    const bool with_sub = cutoff_sub != 0.0;
+    std::vector<double> acc(plane, 0.0);
+    std::vector<double> sub(with_sub ? plane : 0, 0.0);
+    const int nbands = (l1 + kBand - 1) / kBand;
 #ifdef _OPENMP
 #pragma omp parallel for schedule(dynamic)
 #endif
-    for (int p = 0; p < npairs; ++p) {
-#ifdef _OPENMP
-        double* A = acc[omp_get_thread_num()].data();
-#else
-        double* A = acc[0].data();
-#endif
-        const int32_t* m1 = maps1 + map1_off[a_idx[p]];
-        const int32_t* m2 = maps2 + map2_off[b_idx[p]];
-        const double w = wts[p];
-        const int64_t e0 = pair_start[p], e1 = e0 + pair_len[p];
-        for (int64_t e = e0; e < e1; ++e) {
-            A[(size_t)m1[coo_r[e]] * l2 + m2[coo_c[e]]] += w * coo_v[e];
-        }
-        if (cutoff_sub != 0.0f) {
-            const int64_t n1 =
-                map1_off[a_idx[p] + 1] - map1_off[a_idx[p]];
-            const int64_t n2 =
-                map2_off[b_idx[p] + 1] - map2_off[b_idx[p]];
-            const double sub = w * (double)cutoff_sub;
-            for (int64_t r = 0; r < n1; ++r) {
-                double* row = A + (size_t)m1[r] * l2;
-                for (int64_t c = 0; c + 1 < n2; ++c) {
-                    row[m2[c]] -= sub;
+    for (int band = 0; band < nbands; ++band) {
+        const int lo = band * kBand, hi = std::min(l1, lo + kBand);
+        for (int p = 0; p < npairs; ++p) {
+            const int32_t* m1 = maps1 + map1_off[a_idx[p]];
+            const int32_t* m1_end = maps1 + map1_off[a_idx[p] + 1];
+            const int32_t* m2 = maps2 + map2_off[b_idx[p]];
+            // sequence rows r0..r1 land in profile rows [lo, hi)
+            const int32_t r0 =
+                (int32_t)(std::lower_bound(m1, m1_end, lo) - m1);
+            const int32_t r1 =
+                (int32_t)(std::lower_bound(m1 + r0, m1_end, hi) - m1);
+            if (r0 == r1) continue;
+            const int32_t* er = coo_r + pair_start[p];
+            const int32_t* er_end = er + pair_len[p];
+            const int32_t* e0 = std::lower_bound(er, er_end, r0);
+            const int32_t* e1 = std::lower_bound(e0, er_end, r1);
+            const float w = (float)wts[p];
+            for (int64_t e = e0 - coo_r; e < e1 - coo_r; ++e) {
+                const float wv = w * coo_v[e];
+                acc[(size_t)m1[coo_r[e]] * l2 + m2[coo_c[e]]] += (double)wv;
+            }
+            if (with_sub) {
+                const int64_t n2 =
+                    map2_off[b_idx[p] + 1] - map2_off[b_idx[p]];
+                const double s = wts[p] * cutoff_sub;
+                for (int32_t r = r0; r < r1; ++r) {
+                    double* row = sub.data() + (size_t)m1[r] * l2;
+                    for (int64_t c = 0; c + 1 < n2; ++c) row[m2[c]] -= s;
                 }
             }
         }
-    }
-    for (int t = 0; t < nthreads; ++t) {
-        const double* A = acc[t].data();
-        for (size_t k = 0; k < plane; ++k) out[k] += (float)A[k];
+        for (size_t k = (size_t)lo * l2; k < (size_t)hi * l2; ++k)
+            out[k] = (float)(with_sub ? acc[k] + sub[k] : acc[k]);
     }
 }
 

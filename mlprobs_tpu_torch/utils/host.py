@@ -18,13 +18,14 @@ import numpy as np
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "host.cpp"
 _BUILD = Path(__file__).resolve().parents[1] / "_build" / "host"
-_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-          "-std=c++17"]
+_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fopenmp",
+          "-shared", "-fPIC", "-std=c++17"]
 
 _i8p = ctypes.POINTER(ctypes.c_int8)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _f32p = ctypes.POINTER(ctypes.c_float)
+_f64p = ctypes.POINTER(ctypes.c_double)
 
 
 @functools.lru_cache(maxsize=1)
@@ -46,8 +47,8 @@ def lib() -> ctypes.CDLL:
     L.profile_posterior.restype = None
     L.profile_posterior.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        _i64p, _i64p, _i32p, _i32p, _f32p, _i32p, _i32p, _f32p,
-        _i32p, _i64p, _i32p, _i64p, ctypes.c_float, _f32p,
+        _i64p, _i64p, _i32p, _i32p, _f64p, _i32p, _i32p, _f32p,
+        _i32p, _i64p, _i32p, _i64p, ctypes.c_double, _f32p,
     ]
     return L
 
@@ -80,15 +81,20 @@ def profile_posterior(l1, l2, pair_start, pair_len, a_idx, b_idx, wts,
                       coo_r, coo_c, coo_v, maps1, map1_off, maps2,
                       map2_off, cutoff_sub: float) -> np.ndarray:
     """Weighted BuildPosterior scatter (ProbabilisticModel.h:1197-1379)
-    into a dense (l1, l2) float32 plane."""
-    out = np.zeros((l1, l2), dtype=np.float32)
+    into a dense (l1, l2) float32 plane, equal bit for bit to the JAX
+    package's numpy path whatever the thread count.
+
+    `wts` are the pair weights in float64; each pair's entries must be
+    sorted by row (`align/progressive.PostPool` stores them so)."""
+    wts = np.ascontiguousarray(wts, np.float64)
+    out = np.empty((l1, l2), dtype=np.float32)
     lib().profile_posterior(
         l1, l2, len(pair_start),
         _p(pair_start, _i64p), _p(pair_len, _i64p),
-        _p(a_idx, _i32p), _p(b_idx, _i32p), _p(wts, _f32p),
+        _p(a_idx, _i32p), _p(b_idx, _i32p), _p(wts, _f64p),
         _p(coo_r, _i32p), _p(coo_c, _i32p), _p(coo_v, _f32p),
         _p(maps1, _i32p), _p(map1_off, _i64p),
         _p(maps2, _i32p), _p(map2_off, _i64p),
-        ctypes.c_float(cutoff_sub), _p(out, _f32p),
+        ctypes.c_double(cutoff_sub), _p(out, _f32p),
     )
     return out

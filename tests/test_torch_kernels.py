@@ -309,3 +309,23 @@ def test_kernels_past_8192_lanes_on_card(cuda_device, mode, lp):
     _sweeps_vs_plain(fk, rk, fp, rp, models)
     del fp, rp
     _combine_vs_plain(fk, rk, lx, ly, models)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp", [128, 512])
+def test_qp_scaled_tables_on_card(cuda_device, lp):
+    """The scaled-kernel qp route (MLPROBS_QP_EXACT=0): both kernels on
+    hmm5 + partition with the Vtml200 ("qp") partition tables, against
+    their plain versions: sweep scales equal and planes and totals as in
+    _sweeps_vs_plain; combine dense with match counts, top-k 1 and 16
+    with and without match counts, as in _combine_vs_plain."""
+    models = MODEL_SETS["qp"]
+    tf, tr = tpw._wf_tables("qp", None, cuda_device)
+    qp_pm = torch.exp(torch.as_tensor(
+        tpw.mp.partition_params_qp().lscore, device=cuda_device))
+    assert torch.equal(tf["partition"]["pm"][:20, :20], qp_pm[:20, :20])
+    X, Y, lx, ly = _edge_batch(cuda_device, lp, 4, seed=lp * 13 + 5)
+    fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
+    fp, rp = _sweeps(twk.sweep_reference, X, Y, lx, ly, tf, tr, models)
+    _sweeps_vs_plain(fk, rk, fp, rp, models)
+    _combine_vs_plain(fk, rk, lx, ly, models)

@@ -57,7 +57,12 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "mlprobs_tpu_torch.pipeline.cli" in res["imported"]
-    assert len(res["imported"]) >= 20
+    assert {"mlprobs_tpu_torch.bench.quality",
+            "mlprobs_tpu_torch.pipeline.auxtools",
+            "mlprobs_tpu_torch.ops.semiring", "mlprobs_tpu_torch.ops.pairhmm",
+            "mlprobs_tpu_torch.ops.partition", "mlprobs_tpu_torch.ops.mwt",
+            "mlprobs_tpu_torch.ops.viterbi"} <= set(res["imported"])
+    assert len(res["imported"]) >= 27
     assert [m for m in res["new"] if _forbidden(m)] == []
 
 
@@ -103,10 +108,12 @@ NON_PROGRESSIVE = (16, 12, 24, 0.5, 0.1, 2)
     "align_family", "family_viterbi_stats", "device_posterior_tensor",
     "all_pairs_posteriors", "cli", "align_family_quickprobs",
     "run_pipeline", "cli_align", "align_family_np", "cli_base_np",
-    "run_pipeline_np",
+    "run_pipeline_np", "cli_bench", "cli_base_flags",
+    "all_pairs_posteriors_scan", "all_pairs_posteriors_qp_scaled",
 ])
 def test_entry_points_need_the_card_unless_asked_for_cpu(no_cuda, entry,
-                                                         tmp_path):
+                                                         tmp_path,
+                                                         monkeypatch):
     recs = _family()
     seqs = [np.frombuffer(s.encode(), np.uint8) % 20 for _, s in recs]
     seqs = [s.astype(np.int8) for s in seqs]
@@ -130,19 +137,48 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(no_cuda, entry,
         "run_pipeline_np":
             lambda **kw: driver.run_pipeline(
                 synthetic_family(*NON_PROGRESSIVE), **kw),
+        "all_pairs_posteriors_scan":
+            lambda **kw: list(pairwise.all_pairs_posteriors(seqs, "mix",
+                                                            **kw)),
+        "all_pairs_posteriors_qp_scaled":
+            lambda **kw: list(pairwise.all_pairs_posteriors(seqs, "qp",
+                                                            **kw)),
     }
-    if entry in ("cli", "cli_align", "cli_base_np"):
+    if entry == "all_pairs_posteriors_scan":
+        monkeypatch.setenv("MLPROBS_POSTERIOR_ENGINE", "scan")
+    if entry == "all_pairs_posteriors_qp_scaled":
+        monkeypatch.setenv("MLPROBS_QP_EXACT", "0")
+    if entry == "cli_bench":
+        suite = tmp_path / "suite"
+        suite.mkdir()
+        (suite / "fam").write_text("".join(f">{h}\n{s}\n"
+                                           for h, s in recs))
+        args = ["bench", str(suite), "--out", str(tmp_path / "out")]
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(args)
+        assert not (tmp_path / "out").exists()
+        assert cli.main(args + ["--device", "cpu"]) == 0
+        assert (tmp_path / "out" / "fam").read_text().count(">") == 3
+        return
+    if entry in ("cli", "cli_align", "cli_base_np", "cli_base_flags"):
         if entry == "cli_align":
             recs = synthetic_family(*PROGRESSIVE)
         args = {"cli": ["base"], "cli_align": ["align"],
-                "cli_base_np": ["base", "-p", "1"]}[entry]
+                "cli_base_np": ["base", "-p", "1"],
+                "cli_base_flags": ["base", "--config", "quickprobs",
+                                   "--annot", str(tmp_path / "annot"),
+                                   "--autosave", "1"]}[entry]
         inp = tmp_path / "in.fa"
         inp.write_text("".join(f">{h}\n{s}\n" for h, s in recs))
         with pytest.raises(RuntimeError, match="cuda"):
             cli.main(args + [str(inp), str(tmp_path / "out.fa")])
+        assert not (tmp_path / "annot").exists()
         assert cli.main(args + [str(inp), str(tmp_path / "out.fa"),
                                 "--device", "cpu"]) == 0
         assert (tmp_path / "out.fa").read_text().count(">") == len(recs)
+        if entry == "cli_base_flags":
+            assert (tmp_path / "annot").read_text().strip()
+            assert list(tmp_path.glob("out.fa_r*"))
         return
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

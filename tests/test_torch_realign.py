@@ -42,10 +42,16 @@ def _one_torch_thread():
 
 @pytest.fixture
 def jax_wavefront(monkeypatch):
-    """The JAX package on its wavefront engine with the native route off."""
+    """The JAX package on its wavefront engine with the native route off.
+
+    The JAX package reads its engine once and caches it; the variable is
+    then unset again, because the port has no "wavefront" engine (its
+    CPU path is the default "pallas") and refuses the name."""
     monkeypatch.setenv("MLPROBS_POSTERIOR_ENGINE", "wavefront")
     monkeypatch.setenv("MLPROBS_NATIVE_ROUTE", "0")
     jpw._reset_engine_caches()
+    assert jpw._engine() == "wavefront"
+    monkeypatch.delenv("MLPROBS_POSTERIOR_ENGINE")
     yield
     monkeypatch.undo()
     jpw._reset_engine_caches()
