@@ -1,8 +1,10 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only multichip   # the build and phase 17 alone
 
-Phases (any failure exits non-zero):
+Every phase runs unsharded (MLPROBS_MULTICHIP=0) but [multichip], which
+sets its meshes itself.  Phases (any failure exits non-zero):
  1. device: the card's name and power limit, torch and CUDA versions;
  2. build: both kernels from the repository's .cu sources with nvcc;
  3. kernels against their plain PyTorch versions on the card, for every
@@ -79,7 +81,23 @@ Phases (any failure exits non-zero):
     family must score sp = tc = 1.000;
 16. [annot]: `cli base --config quickprobs --annot --clustalw
     --autosave 1` in a subprocess on the smoke family: one score in
-    0-200 per column, the ClustalW file equal to the last autosave.
+    0-200 per column, the ClustalW file equal to the last autosave;
+17. [multichip]: the sharded pair stages on a pairs mesh of the card
+    twice and, on a machine with two or more cards, on up to four of
+    them (what MLPROBS_MULTICHIP=1 gives there), set in place of
+    `pairwise._mesh`: each card's kernels against their plain versions,
+    `base` on the smoke family and `run_pipeline` on the small family
+    through the production routes beside the same runs unsharded in the
+    phase (hashes, which must be [main]'s and [pipeline-cpu]'s, wall
+    clock, stages, peak bytes a device, launches), the sharded posterior
+    step and dense tensor against the unsharded route (equal), and one
+    sharded relaxation round against `relax_dense_rounds` (atol 1e-6);
+18. [em]: one EM re-estimation (`ops/em.py`, with emissions) from two
+    smoke-family sequences on the card against the CPU (rtol 1e-4,
+    atol 1e-6);
+19. [library]: `local_posterior_qpx` at Lp=512/B=32 on the card against
+    the CPU (atol 2e-5, rtol 1e-3), and `column_scores_torch` of the smoke
+    family's MSA on the card against the host scores (atol 1e-6).
 Each path is driven with the launch counts set to 0 just before it and
 read just after (a subprocess reports its own); a path that launched
 none of its kernels fails.
@@ -483,17 +501,16 @@ def phase_qp_scaled(dev, batch, cuda_ms, records, default_hash, small,
         fail(f"a kernel disagrees with its plain version on the qp "
              f"tables: {chk}")
     del fk, rk, post, vw, lw
-    scaled = pairwise._wf_fn(models, False)
-    exact = pairwise._qp_exact_fn(False)
+    scaled = pairwise._wf_fn(models, False, lambda d: (tabs_f, tabs_r))
+    exact = pairwise._qp_exact_fn(False, lambda d: (tabs_f, tabs_r))
     times = {
         "sweep_fwd_ms": cuda_ms(lambda: wk.sweep(
             X, Y, zero, zero, LX, LY, tabs_f, models=models), 7),
         "sweep_rev_ms": cuda_ms(lambda: wk.sweep(
             *flipped, LX, LY, tabs_r, models=models, emit_pre=True), 7),
-        "scaled_batch_ms": cuda_ms(lambda: scaled(
-            X, Y, LX, LY, tabs_f, tabs_r), 7),
-        "qpx_batch_ms": cuda_ms(lambda: exact(
-            X, Y, LX, LY, tabs_f, tabs_r), 1, warm=False),
+        "scaled_batch_ms": cuda_ms(lambda: scaled(X, Y, LX, LY), 7),
+        "qpx_batch_ms": cuda_ms(lambda: exact(X, Y, LX, LY), 1,
+                                warm=False),
     }
     fk, rk = (wk.sweep(X, Y, zero, zero, LX, LY, tabs_f, models=models),
               wk.sweep(*flipped, LX, LY, tabs_r, models=models,
@@ -664,7 +681,245 @@ def phase_annot(work, records, dev_args):
     return launched
 
 
+def phase_multichip(dev, batch, records, small, seqs, leave, drive,
+                    valid_msa, main_hash=None, small_hash=None):
+    """[multichip]: the sharded routes on a pairs mesh of the card twice
+    and, with two or more cards, on up to four of them, each set in
+    place of `pairwise._mesh` (what MLPROBS_MULTICHIP=1 gives on a
+    machine with several cards): `base` on the smoke family and
+    `run_pipeline` on the small family through the production entry
+    points, beside the same runs unsharded in this call (hashes, devices,
+    wall clock, stages, peak bytes a device, launches); then the sharded
+    posterior step and the dense tensor against the unsharded route, and
+    one sharded relaxation round against `relax_dense_rounds` on the
+    smoke family's tensor.  The unsharded hashes must equal
+    `main_hash` and `small_hash` ([main]'s, [pipeline-cpu]'s) when they
+    are given.  Returns the launches of the first mesh's `base` run."""
+    import torch
+    from mlprobs_tpu_torch.align import aligner, pairwise
+    from mlprobs_tpu_torch.align import consistency as cons
+    from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
+    from mlprobs_tpu_torch.parallel import sharded
+    from mlprobs_tpu_torch.parallel.mesh import pairs_mesh
+    from mlprobs_tpu_torch.pipeline.driver import run_pipeline
+
+    n_cards = torch.cuda.device_count()
+    meshes = [pairs_mesh([dev, dev])]
+    if n_cards >= 2:
+        meshes.append(pairs_mesh(
+            [torch.device("cuda", k) for k in range(min(4, n_cards))]))
+    real_mesh = pairwise._mesh
+    if real_mesh(dev) is not None:
+        fail("the unsharded reference runs have a mesh")
+
+    def runs(devices):
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
+        rep: dict = {}
+        msa, wall, launched, _, timers = drive(
+            lambda: aligner.align_family(records, config="pnp", strategy=0,
+                                         report=rep, device="cuda"))
+        peaks = {str(d): torch.cuda.max_memory_allocated(d)
+                 for d in devices}
+        (smsa, srep), swall, slaunch, _, _ = drive(
+            lambda: run_pipeline(small, device="cuda"))
+        rec = {"base": {"family": "synthetic N=48 L=330-470 sub=0.5 "
+                                  "indel=0.1 seed=48",
+                        "wall_s": wall, "stages_s": timers,
+                        "launches": launched,
+                        "peak_device_bytes": peaks, "report": rep,
+                        "valid": valid_msa(msa, records),
+                        "content_hash": msa.content_hash()},
+               "pipeline_small": {"wall_s": swall, "launches": slaunch,
+                                  "hash": srep.final_hash,
+                                  "block_errors": srep.block_errors,
+                                  "valid": valid_msa(smsa, small)}}
+        ok = (rec["base"]["valid"] and rec["pipeline_small"]["valid"]
+              and rep.get("consistency_engine") == "device"
+              and min(launched.values()) >= 1
+              and min(slaunch.values()) >= 1
+              and not srep.crash_fallback and not srep.block_errors)
+        return rec, ok, launched
+
+    # the unsharded runs that the meshes are held against, in this call
+    unsharded, ok, _ = runs([torch.device("cuda",
+                                          torch.cuda.current_device())])
+    print("[multichip] unsharded " + json.dumps(unsharded, default=float),
+          flush=True)
+    main_hash = main_hash or unsharded["base"]["content_hash"]
+    small_hash = small_hash or unsharded["pipeline_small"]["hash"]
+    if (not ok or unsharded["base"]["content_hash"] != main_hash
+            or unsharded["pipeline_small"]["hash"] != small_hash):
+        fail(f"the unsharded reference runs failed or moved: {unsharded}")
+    X, Y, LX, LY = batch(512, 64, seed=64)
+    tensor0 = pairwise.device_posterior_tensor(seqs, "mix", leave,
+                                               device=dev)
+    p0, s0 = sharded.make_sharded_posterior_step(pairs_mesh([dev]))(
+        X, Y, LX, LY)
+    first = None
+    try:
+        for mesh in meshes:
+            pairwise._mesh = lambda device="cuda", mesh=mesh: mesh
+            cards = sorted({d.index for d in mesh.devices})
+            # each distinct card's kernels against their plain versions
+            kernel_err = {}
+            mix = MODEL_SETS["mix"]
+            for k in cards:
+                d = torch.device(dev.type, k)
+                x, y, lx, ly = (t[:3].to(d) for t in (X, Y, LX, LY))
+                tfd, trd = pairwise._wf_tables("mix", 0.17, d)
+                post_k, _ = wk.posterior(x, y, lx, ly, tfd, trd, models=mix)
+                zero = torch.zeros_like(lx)
+                fwd = wk.sweep_reference(x, y, zero, zero, lx, ly, tfd,
+                                         models=mix)
+                rev = wk.sweep_reference(
+                    x.flip(1).contiguous(), y.flip(1).contiguous(),
+                    (x.shape[1] - lx).to(torch.int32),
+                    (x.shape[1] - ly).to(torch.int32),
+                    lx, ly, trd, models=mix, emit_pre=True)
+                post_p, _ = wk.combine_reference(fwd, rev, lx, ly, mix)
+                kernel_err[str(d)] = float((post_k - post_p).abs().max())
+            rec, ok, launched = runs(sorted(set(mesh.devices), key=str))
+            # the stages against the unsharded route on the same inputs
+            p1, s1 = sharded.make_sharded_posterior_step(mesh)(X, Y, LX, LY)
+            tensor1 = pairwise.device_posterior_tensor(seqs, "mix", leave,
+                                                       device=dev)
+            S = tensor0.S
+            n = S.shape[0]
+            sc, zs, w = cons.dense_relax_coeffs(n)
+            want = cons.relax_dense_rounds(
+                S, *(torch.from_numpy(a).to(dev) for a in (sc, zs, w)),
+                reps=1)
+            got = pairwise._relax_sharded(S, sc, zs, w, 1, mesh)
+            rec = {
+                "mesh": [str(d) for d in mesh.devices],
+                "cards": [torch.cuda.get_device_name(k) for k in cards],
+                "kernel_vs_plain_err": kernel_err, **rec,
+                "unsharded_hashes": [main_hash, small_hash],
+                "posterior_step_err": float((p1 - p0).abs().max()),
+                "posterior_step_score_err": float((s1 - s0).abs().max()),
+                "tensor_equal": bool(torch.equal(tensor1.S, S)),
+                "dist_equal": bool((tensor1.dist == tensor0.dist).all()),
+                "relax_round_err": float((got - want).abs().max()),
+                "relax_round_cells_differing": int((got != want).sum()),
+            }
+            print("[multichip] " + json.dumps(rec, default=float),
+                  flush=True)
+            del p1, tensor1, want, got
+            if first is None:
+                first = launched
+            if max(kernel_err.values()) > TOL["post"] or not ok:
+                fail(f"a sharded route failed: {rec}")
+            if (rec["posterior_step_err"] > 0 or not rec["tensor_equal"]
+                    or not rec["dist_equal"]
+                    or rec["relax_round_err"] > 1e-6):
+                fail(f"a sharded stage differs from the unsharded one "
+                     f"beyond the relaxation's rounding: {rec}")
+            if (rec["base"]["content_hash"] != main_hash
+                    or rec["pipeline_small"]["hash"] != small_hash):
+                # allowed only where the row-blocked contraction rounds
+                # otherwise than the whole one (within 1e-6, above)
+                if rec["relax_round_cells_differing"] == 0:
+                    fail(f"a sharded route changed a family's MSA: {rec}")
+                print("[multichip] hash differs from the unsharded run; "
+                      "first differing stage: the relaxation "
+                      f"({rec['relax_round_cells_differing']} cells, at "
+                      f"most {rec['relax_round_err']:.3g})", flush=True)
+    finally:
+        pairwise._mesh = real_mesh
+        pairwise._reset_engine_caches()
+    return first
+
+
+def phase_em(dev, seqs):
+    """[em]: one EM re-estimation (`ops/em.hmm5_em_step`, with emissions)
+    from the first two smoke-family sequences on the card against the
+    same call on the CPU, rtol 1e-4 / atol 1e-6."""
+    import torch
+    from mlprobs_tpu_torch.align import pairwise
+    from mlprobs_tpu_torch.ops import em
+
+    x, y = (torch.from_numpy(s.astype("int64")) for s in seqs[:2])
+    out = []
+    for d in (dev, torch.device("cpu")):
+        p = pairwise.hmm5_dict(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = em.hmm5_em_step(x.to(d), y.to(d), p, train_emissions=True)
+        res = {k: v.cpu() for k, v in res.items()}
+        out.append((res, time.perf_counter() - t0))
+    (card, t_card), (cpu, t_cpu) = out
+    rel = {k: float(((card[k] - cpu[k]).abs()
+                     / cpu[k].abs().clamp(min=1e-30)).max()) for k in cpu}
+    ok = all(torch.allclose(card[k], cpu[k], rtol=1e-4, atol=1e-6)
+             and bool(torch.isfinite(card[k]).all()) for k in cpu)
+    rec = {"lx": len(seqs[0]), "ly": len(seqs[1]), "card_s": t_card,
+           "cpu_s": t_cpu, "max_rel_err": rel, "ok": ok,
+           "gap_open": card["gap_open"].tolist(),
+           "gap_extend": card["gap_extend"].tolist()}
+    print("[em] " + json.dumps(rec), flush=True)
+    if not ok:
+        fail(f"EM on the card disagrees with the CPU: {rec}")
+
+
+def phase_library(dev, batch, msa):
+    """[library]: `ops/qpx.local_posterior_qpx` at Lp = 512, B = 32 on the
+    card against the CPU (atol 2e-5 with rtol 1e-3: the card's exp and
+    log are not the CPU's, 1.3e-5 apart at most; the posteriors reach
+    well above atol), and
+    `ops/colscore.column_scores_torch` of the smoke family's MSA on the
+    card against the host scores (atol 1e-6)."""
+    import torch
+    from mlprobs_tpu_torch.align import pairwise
+    from mlprobs_tpu_torch.ops import colscore, qpx
+
+    X, Y, LX, LY = batch(512, 32, seed=32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        p = pairwise.local_dict(0.17, device=d)
+        args = [t.to(d) for t in (X, Y, LX, LY)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = qpx.local_posterior_qpx(*args, p["trans"], p["log_stay"],
+                                       p["lmatch"], p["lins"]).cpu()
+        out.append((post, time.perf_counter() - t0))
+    (pk, tk), (pc, tc) = out
+    big = pc > 1e-2
+    rows = msa.rows
+    cs_card = colscore.column_scores_torch(torch.from_numpy(rows).to(dev))
+    cs_host = colscore.column_scores(rows)
+    cs_err = float(abs(cs_card.cpu().double().numpy() - cs_host).max())
+    rec = {"local_qpx": {"lp": 512, "b": 32, "card_s": tk, "cpu_s": tc,
+                         "max_abs_err": float((pk - pc).abs().max()),
+                         "max_rel_err_above_1e-2": float(
+                             ((pk - pc).abs()[big] / pc[big]).max()),
+                         "allclose": torch.allclose(pk, pc, rtol=1e-3,
+                                                    atol=2e-5),
+                         "finite": bool(torch.isfinite(pk).all()),
+                         "max": float(pk.max())},
+           "column_scores": {"n": int(rows.shape[0]),
+                             "columns": int(rows.shape[1]),
+                             "max_abs_err": cs_err}}
+    print("[library] " + json.dumps(rec), flush=True)
+    if (not rec["local_qpx"]["allclose"] or rec["local_qpx"]["max"] < 2e-3
+            or not rec["local_qpx"]["finite"] or cs_err > 1e-6):
+        fail(f"a library function on the card disagrees: {rec}")
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke run of the "
+                                 "PyTorch/CUDA port (every phase by default).")
+    ap.add_argument("--only", choices=["multichip"],
+                    help="build the kernels and run this phase alone (with "
+                         "its own unsharded reference runs), for a machine "
+                         "with several cards")
+    args = ap.parse_args()
+    # every phase runs unsharded whatever the environment says, the
+    # subprocesses of [bench] and [annot] too; [multichip] sets its meshes
+    # in place of pairwise._mesh
+    os.environ["MLPROBS_MULTICHIP"] = "0"
     try:
         import torch
     except ImportError:
@@ -711,6 +966,31 @@ def main() -> None:
             print(f"[build:{name}] {line}")
     wk.reset_launch_counts()
 
+    def valid_msa(msa, recs):
+        rows = dict(msa.to_records())
+        return (msa.num_seqs == len(recs)
+                and len({len(r) for r in rows.values()}) == 1
+                and all(rows.get(h, "").replace("-", "") == q
+                        for h, q in recs))
+
+    def drive(fn):
+        """(result, wall s, launches, peak bytes, stage timers) of one
+        path, the launch counts set to 0 just before it."""
+        STATS.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        launched = {"sweep": wk.sweep.launches,
+                    "combine": wk.combine.launches}
+        timers = {k[5:]: v for k, v in STATS.to_dict().items()
+                  if k.startswith("time.")}
+        return out, wall_, launched, torch.cuda.max_memory_allocated(), \
+            timers
+
     # ---- 3. kernels against their plain versions -------------------------
     clock("check")
     def batch(lp, b, seed):
@@ -727,6 +1007,23 @@ def main() -> None:
                                           generator=rng)
         return (X.to(dev), Y.to(dev), lens.to(torch.int32).to(dev),
                 ly.to(torch.int32).to(dev))
+
+    records = synthetic_family(48, 330, 470, sub=0.5, indel=0.1, seed=48)
+    small = synthetic_family(6, 40, 90, sub=0.2, indel=0.05, seed=5)
+    if args.only == "multichip":
+        clock("multichip")
+        seqs = [degap(encode(s)) for _, s in records]
+        stats = aligner.family_viterbi_stats(seqs, device=dev)
+        leave = aligner.mp.adaptive_leave_prob(stats.avg_pid)
+        phase_multichip(dev, batch, records, small, seqs, leave, drive,
+                        valid_msa)
+        shutil.rmtree(work, ignore_errors=True)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     def sweeps(fn, X, Y, LX, LY, tabs_f, tabs_r, models):
         b, lp = X.shape
@@ -895,7 +1192,6 @@ def main() -> None:
 
     # ---- 4. the main path --------------------------------------------------
     clock("main")
-    records = synthetic_family(48, 330, 470, sub=0.5, indel=0.1, seed=48)
     report: dict = {}
     STATS.reset()
     torch.cuda.synchronize()
@@ -1009,31 +1305,6 @@ def main() -> None:
           + json.dumps(prof), flush=True)
     del X, Y, LX, LY, Xp, Yp, LXp, LYp
 
-    def valid_msa(msa, recs):
-        rows = dict(msa.to_records())
-        return (msa.num_seqs == len(recs)
-                and len({len(r) for r in rows.values()}) == 1
-                and all(rows.get(h, "").replace("-", "") == q
-                        for h, q in recs))
-
-    def drive(fn):
-        """(result, wall s, launches, peak bytes, stage timers) of one
-        path, the launch counts set to 0 just before it."""
-        STATS.reset()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        wk.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall_ = time.perf_counter() - t0
-        launched = {"sweep": wk.sweep.launches,
-                    "combine": wk.combine.launches}
-        timers = {k[5:]: v for k, v in STATS.to_dict().items()
-                  if k.startswith("time.")}
-        return out, wall_, launched, torch.cuda.max_memory_allocated(), \
-            timers
-
     # ---- 6. [pipeline]: cli align's path on the smoke family -------------
     clock("pipeline")
     (pmsa, prep), pwall, plaunch, ppeak, ptimers = drive(
@@ -1091,7 +1362,6 @@ def main() -> None:
     # The small family takes the whole-family realign, as the smoke family
     # does; its second run forces classifier 3 to RIR (as the CPU tests
     # do) so that the block realign runs on the card too.
-    small = synthetic_family(6, 40, 90, sub=0.2, indel=0.05, seed=5)
     keys = ("strategy", "realign_mode", "min_length_class",
             "num_realign_blocks", "blocks_realigned", "blocks_accepted",
             "whole_family_realign", "crash_fallback")
@@ -1109,6 +1379,8 @@ def main() -> None:
             forests.classify_realign_strategy = real_rs
         dec_c = {k: getattr(crep, k) for k in keys}
         dec_h = {k: getattr(hrep, k) for k in keys}
+        if case == "as-classified":
+            small_hash = crep.final_hash
         print("[pipeline-cpu] " + json.dumps({
             "family": "synthetic N=6 L=40-90 sub=0.2 indel=0.05 seed=5",
             "case": case,
@@ -1404,6 +1676,16 @@ def main() -> None:
     clock("annot")
     alaunch = phase_annot(work, records, ())
     shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 17.-19. [multichip], [em], [library] -----------------------------
+    clock("multichip")
+    mlaunch = phase_multichip(dev, batch, records, small, seqs, leave,
+                              drive, valid_msa, main_hash=msa.content_hash(),
+                              small_hash=small_hash)
+    clock("em")
+    phase_em(dev, seqs)
+    clock("library")
+    phase_library(dev, batch, msa)
     if deferred:
         fail("; ".join(deferred))
 
@@ -1425,7 +1707,8 @@ def main() -> None:
                                  "long": llaunch[name],
                                  "qp_scaled": qlaunch_scaled[name],
                                  "bench": blaunch[name],
-                                 "annot": alaunch[name]},
+                                 "annot": alaunch[name],
+                                 "multichip": mlaunch[name]},
             "max_abs_err": worst[name], "ms": timing[name][0],
             "plain_ms": timing[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,

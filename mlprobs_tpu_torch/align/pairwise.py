@@ -33,6 +33,13 @@ MLPROBS_POSTERIOR_ENGINE selects the engine of the posteriors:
              runs on the host.
 The JAX package's "native" host engine is not ported (the posteriors run
 on the card), and its "wavefront" engine is the CPU path of "pallas".
+
+MLPROBS_MULTICHIP=1 shards the pair stages over a pairs mesh of every
+visible card (parallel/mesh.py), as the JAX package shards them over a
+TPU mesh: the features, the posteriors and the dense relaxation of the
+"pallas" engine.  One process drives every device of the mesh (`_mesh`,
+`_shard_pairs`); a pair's results do not depend on the mesh.  Unset or
+"auto", nothing is sharded (see `_mesh`).
 """
 from __future__ import annotations
 
@@ -50,6 +57,8 @@ from mlprobs_tpu_torch.ops import (mwt, pairhmm, partition, qpx, viterbi,
                                    wavefront)
 from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
 from mlprobs_tpu_torch.ops.viterbi import VIT_INIT
+from mlprobs_tpu_torch.parallel.mesh import (PairsMesh, gather, pairs_mesh,
+                                             split_pairs)
 from mlprobs_tpu_torch.utils import device as devlib
 
 LEN_BUCKET = _CFG.engine.length_bucket
@@ -89,24 +98,116 @@ def _bucket_len(n: int) -> int:
     return max(LEN_BUCKET, -(-n // LEN_BUCKET) * LEN_BUCKET)
 
 
-def _wf_batch_size(lp: int, device: torch.device) -> int:
+def _mesh(device="cuda") -> PairsMesh | None:
+    """The pairs mesh of a run on `device`, or None unsharded.
+
+    MLPROBS_MULTICHIP: "1" shards over every visible card when there are
+    two or more and the run is on the card (None on the CPU and on one
+    card); "0" disables sharding; "auto", the default, shards nowhere.
+    The JAX package's "auto" shards on a TPU of several chips; a mesh of
+    H100s driven from one process measured slower than one card
+    (PERF.md), so here sharding waits to be asked for."""
+    if os.environ.get("MLPROBS_MULTICHIP", "auto") != "1":
+        return None
+    if torch.device(device).type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    return pairs_mesh()
+
+
+def _reset_engine_caches() -> None:
+    """Clear the device-dependent caches (tests and the chip smoke run
+    change the mesh at run time)."""
+    _wf_tables.cache_clear()
+    _qpx_params.cache_clear()
+
+
+def _shard_pairs(body, tables, mesh: PairsMesh | None,
+                 out_axes: tuple[int, ...]):
+    """`run(X, Y, LX, LY)`: `body(X, Y, LX, LY, *tables(device))`, with
+    the pair axis of the four inputs split over `mesh` when there is one.
+
+    Each device runs `body` on its share with its own tables
+    (`tables(device)`, built once a device); `out_axes[k]` names the pair
+    axis of output k (0 for per-pair values, 1 for (D, B, ...) planes),
+    along which the outputs are concatenated on the caller's device.
+    Every shard is launched before any is read back.  Per-pair results
+    are independent of the split: pure data parallelism, as the JAX
+    package's shard_map."""
+
+    def run(X, Y, LX, LY):
+        if mesh is None:
+            return body(X, Y, LX, LY, *tables(X.device))
+        outs = [body(*shard, *tables(dev))
+                for dev, shard in split_pairs((X, Y, LX, LY), mesh)]
+        return gather(outs, out_axes, X.device)
+
+    return run
+
+
+def _wf_batch_size(lp: int, device: torch.device,
+                   mesh: PairsMesh | None = None) -> int:
     """Pairs per batch: the device's plane budget over ~80 bytes per
     (pair, cell) — fwd and rev planes of three models, the combined
     plane and its unskewed copy — as a power of two, at most
-    `max_batch`, down to 1 for a pair whose planes fill the budget."""
-    budget = engine_budgets(device.type, device.index)[0]
-    cap = max(1, budget // (80 * lp * lp))
-    cap = 1 << (cap.bit_length() - 1)
-    return int(min(cap, _CFG.engine.max_batch))
+    `max_batch`, down to 1 for a pair whose planes fill the budget.
+
+    With a mesh, each entry's batch from its device's budget, shared
+    among the entries that name that device, times the mesh size, so
+    that the batch splits evenly: each card holds its own batch's planes
+    (a mesh of four cards takes four cards' batches at once)."""
+
+    def cap(dev, share=1):
+        budget = engine_budgets(dev.type, dev.index)[0] // share
+        c = max(1, budget // (80 * lp * lp))
+        c = 1 << (c.bit_length() - 1)
+        return int(min(c, _CFG.engine.max_batch))
+
+    if mesh is None:
+        return cap(device)
+    return mesh.size * min(cap(d, mesh.devices.count(d))
+                           for d in mesh.devices)
 
 
+@functools.lru_cache(maxsize=16)
 def _wf_tables(mode: str, leave_prob: float | None, device):
-    """(tabs_f, tabs_r) probability tables of the mode's models."""
+    """(tabs_f, tabs_r) probability tables of the mode's models, built
+    once a device."""
     tabs_f, tabs_r = mp.tables_from_numpy(
         *mp.log_tables(mode, leave_prob), device=device
     )
     models = _MODE_MODELS[mode]
     return ({m: tabs_f[m] for m in models}, {m: tabs_r[m] for m in models})
+
+
+def _param_dict(params, keys, device) -> dict:
+    device = devlib.resolve(device)
+    return {k: torch.as_tensor(np.asarray(getattr(params, k), np.float32),
+                               device=device) for k in keys}
+
+
+def hmm5_dict(device="cuda") -> dict:
+    """The hmm5 model's log tables as f32 tensors, under the JAX
+    package's keys (trans, init, lmatch, lins)."""
+    return _param_dict(mp.hmm5_params(), ("trans", "init", "lmatch", "lins"),
+                       device)
+
+
+def local_dict(leave_prob: float | None = None, device="cuda") -> dict:
+    """The local model's log tables (trans, lmatch, lins, log_stay)."""
+    return _param_dict(mp.hmm_local_params(leave_prob),
+                       ("trans", "lmatch", "lins", "log_stay"), device)
+
+
+def partition_dict(device="cuda") -> dict:
+    """The partition model's log tables (lscore, lgap_open, lgap_ext)."""
+    return _param_dict(mp.partition_params(),
+                       ("lscore", "lgap_open", "lgap_ext"), device)
+
+
+def partition_qp_dict(device="cuda") -> dict:
+    """QuickProbs partition model (Vtml200; Configuration.cpp:321-333)."""
+    return _param_dict(mp.partition_params_qp(),
+                       ("lscore", "lgap_open", "lgap_ext"), device)
 
 
 def _pad_to(seq: np.ndarray, lp: int) -> np.ndarray:
@@ -118,6 +219,7 @@ def _pad_to(seq: np.ndarray, lp: int) -> np.ndarray:
 def iter_pair_batches(
     seqs: Sequence[np.ndarray], pairs: Sequence[tuple[int, int]],
     device: torch.device, force_lp: int | None = None,
+    mesh: PairsMesh | None = None,
 ) -> Iterator[tuple[list[tuple[int, int]], torch.Tensor, torch.Tensor,
                     torch.Tensor, torch.Tensor]]:
     """Yield (pair_chunk, X, Y, LX, LY) padded batches on `device`.
@@ -126,8 +228,8 @@ def iter_pair_batches(
     reference's per-task wave sizing, PosteriorTasksWave.cpp:14-71);
     `force_lp` pins every pair to one bucket for consumers that build a
     uniform dense tensor.  The batch size comes from the device's
-    budget; the kernels take any batch, so the last batch of a bucket is
-    not padded with dummy pairs.
+    budget (from every mesh device's with a mesh); the kernels take any
+    batch, so the last batch of a bucket is not padded with dummy pairs.
     """
     if not pairs:
         return
@@ -139,7 +241,7 @@ def iter_pair_batches(
         buckets.setdefault(lp, []).append((i, j))
     for lp in sorted(buckets):
         group = buckets[lp]
-        bs = _wf_batch_size(lp, device)
+        bs = _wf_batch_size(lp, device, mesh)
         padded: dict[int, np.ndarray] = {}
 
         def pad(k: int) -> np.ndarray:
@@ -157,9 +259,12 @@ def iter_pair_batches(
                            for a in (X, Y, LX, LY))
 
 
-def _wf_fn(models: tuple[str, ...], with_matches: bool):
+def _wf_fn(models: tuple[str, ...], with_matches: bool, tables,
+           mesh: PairsMesh | None = None):
     """Posterior stage of one batch with the per-diagonal top-k fused
-    into combine: (vals (D, B, k), lanes, score[, nb])."""
+    into combine: (vals (D, B, k), lanes, score[, nb]); `tables(device)`
+    gives a device's (tabs_f, tabs_r); with a mesh, each device runs its
+    share of the batch."""
 
     def run(X, Y, LX, LY, tabs_f, tabs_r):
         return wk.posterior(
@@ -167,10 +272,12 @@ def _wf_fn(models: tuple[str, ...], with_matches: bool):
             with_matches=with_matches, topk=TOPK, cutoff=CUTOFF,
         )
 
-    return run
+    return _shard_pairs(run, tables, mesh, (1, 1, 0, 0) if with_matches
+                        else (1, 1, 0))
 
 
-def _wf_dense_fn(models: tuple[str, ...]):
+def _wf_dense_fn(models: tuple[str, ...], tables,
+                 mesh: PairsMesh | None = None):
     """Posterior stage of one batch emitting grid-space dense planes
     (B, Lp, Lp), thresholded at the cutoff, and the MWT scores."""
 
@@ -182,7 +289,7 @@ def _wf_dense_fn(models: tuple[str, ...]):
         dense = wavefront.unskew_posterior(post)
         return torch.where(dense >= CUTOFF, dense, 0.0), score
 
-    return run
+    return _shard_pairs(run, tables, mesh, (0, 0))
 
 
 @functools.lru_cache(maxsize=4)
@@ -254,7 +361,8 @@ def _scan_fn(models: tuple[str, ...], with_matches: bool):
     return run
 
 
-def _qp_exact_fn(with_matches: bool):
+def _qp_exact_fn(with_matches: bool, tables,
+                 mesh: PairsMesh | None = None):
     """qp twin of _wf_fn: same (vals, lanes, score[, nb]) contract."""
 
     def run(X, Y, LX, LY, tabs_f, tabs_r):
@@ -263,10 +371,11 @@ def _qp_exact_fn(with_matches: bool):
         mw = wavefront.mwt_skew(post, LX, LY, with_matches=with_matches)
         return (vals, lanes) + (mw if with_matches else (mw,))
 
-    return run
+    return _shard_pairs(run, tables, mesh, (1, 1, 0, 0) if with_matches
+                        else (1, 1, 0))
 
 
-def _qp_exact_dense_fn():
+def _qp_exact_dense_fn(tables, mesh: PairsMesh | None = None):
     """qp twin of _wf_dense_fn: (dense grid plane, score)."""
 
     def run(X, Y, LX, LY, tabs_f, tabs_r):
@@ -275,7 +384,7 @@ def _qp_exact_dense_fn():
         dense = wavefront.unskew_posterior(post)
         return torch.where(dense >= CUTOFF, dense, 0.0), score
 
-    return run
+    return _shard_pairs(run, tables, mesh, (0, 0))
 
 
 def topk_diag_to_csr(vals: np.ndarray, lanes: np.ndarray, li: int, lj: int):
@@ -364,18 +473,52 @@ class DevicePosteriorTensor:
         final_cutoff: float | None = None,
     ) -> dict:
         """`reps` relaxation rounds on the device, host CSRs: baseMSA's
-        without `weights`, QuickProbs' weighted accept-all with them."""
+        without `weights`, QuickProbs' weighted accept-all with them.
+        With a mesh, the rows of the pair matrix split over it."""
         from mlprobs_tpu_torch.align import consistency as cons
 
         n = self.S.shape[0]
         dev = self.S.device
-        sc, zs, w = (torch.from_numpy(a).to(dev)
-                     for a in cons.dense_relax_coeffs(
-                         n, weights, selfweight=selfweight,
-                         selectivity=selectivity))
-        S = cons.relax_dense_rounds(self.S, sc, zs, w, reps=reps,
-                                    final_cutoff=final_cutoff)
+        sc, zs, w = cons.dense_relax_coeffs(
+            n, weights, selfweight=selfweight, selectivity=selectivity)
+        mesh = _mesh(dev)
+        if mesh is not None:
+            S = _relax_sharded(self.S, sc, zs, w, reps, mesh,
+                               final_cutoff=final_cutoff)
+        else:
+            sc, zs, w = (torch.from_numpy(a).to(dev) for a in (sc, zs, w))
+            S = cons.relax_dense_rounds(self.S, sc, zs, w, reps=reps,
+                                        final_cutoff=final_cutoff)
         return self._extract(S)
+
+
+def _relax_sharded(S, sc, zs, w, reps: int, mesh: PairsMesh,
+                   final_cutoff: float | None = None):
+    """Dense relaxation rounds with the rows of the pair matrix split
+    over the mesh (parallel/sharded.py), on the tensor's device at the
+    end.  N is padded to a mesh multiple with zero rows, which
+    contribute nothing.  Each round masks and thresholds as the
+    single-device round, the last at `final_cutoff` when given."""
+    from mlprobs_tpu_torch.parallel import sharded
+
+    n = S.shape[0]
+    npad = -(-n // mesh.size) * mesh.size
+    if npad != n:
+        p = npad - n
+        S = torch.nn.functional.pad(S, (0, 0, 0, 0, 0, p, 0, p))
+        sc = np.pad(sc, ((0, p), (0, p)))
+        zs = np.pad(zs, ((0, p), (0, p)))
+        w = np.pad(w, (0, p))
+    relax = sharded.make_sharded_consistency(mesh, npad)
+    sc, zs, w = (torch.from_numpy(a) for a in (sc, zs, w))
+    home = S.device
+    blocks = sharded.split_rows(S, mesh)
+    del S
+    for it in range(reps):
+        c = (final_cutoff if final_cutoff is not None and it == reps - 1
+             else CUTOFF)
+        blocks = relax(blocks, sc, zs, w, cutoff=c)
+    return sharded.gather_rows(blocks, home)[:n, :n]
 
 
 def tensor_bytes_over_budget(seqs: Sequence[np.ndarray], device) -> int:
@@ -421,15 +564,16 @@ def device_posterior_tensor(
     lp = _bucket_len(max(len(s) for s in seqs))
 
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
-    tabs_f, tabs_r = _wf_tables(mode, leave_prob, device)
-    fn = (_qp_exact_dense_fn() if mode == "qp" and _qp_exact()
-          else _wf_dense_fn(_MODE_MODELS[mode]))
+    tables = functools.partial(_wf_tables, mode, leave_prob)
+    mesh = _mesh(device)
+    fn = (_qp_exact_dense_fn(tables, mesh) if mode == "qp" and _qp_exact()
+          else _wf_dense_fn(_MODE_MODELS[mode], tables, mesh))
     S = torch.zeros((n, n, lp, lp), dtype=torch.float32, device=device)
     dist = np.zeros((n, n))
     for chunk, X, Y, LX, LY in iter_pair_batches(
-        seqs, pairs, device, force_lp=lp
+        seqs, pairs, device, force_lp=lp, mesh=mesh
     ):
-        dense, score = fn(X, Y, LX, LY, tabs_f, tabs_r)
+        dense, score = fn(X, Y, LX, LY)
         ii = torch.tensor([i for i, _ in chunk], device=device)
         jj = torch.tensor([j for _, j in chunk], device=device)
         S[ii, jj] = dense
@@ -451,8 +595,11 @@ def all_pairs_posteriors(
 ) -> Iterator[tuple]:
     """Yield ((i, j), sparse posterior csr (li, lj), mwt_score[, n_matches])
     per pair, from the engine that `_engine()` names.  A pair too long
-    for a batch of several runs at B = 1 on the same device."""
+    for a batch of several runs at B = 1 on the same device.  The
+    "pallas" engine's batches split over the mesh, when there is one;
+    the "scan" engine's do not (the JAX package's neither)."""
     device = devlib.resolve(device)
+    mesh = None
     n = len(seqs)
     if pairs is None:
         pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
@@ -466,16 +613,16 @@ def all_pairs_posteriors(
         def to_csr(vals, idx, k, li, lj):
             return topk_to_csr(vals[k], idx[k], li, lj)
     else:
-        tabs_f, tabs_r = _wf_tables(mode, leave_prob, device)
-        fn = (_qp_exact_fn(with_matches) if mode == "qp" and _qp_exact()
-              else _wf_fn(_MODE_MODELS[mode], with_matches))
-
-        def run(X, Y, LX, LY):
-            return fn(X, Y, LX, LY, tabs_f, tabs_r)
+        tables = functools.partial(_wf_tables, mode, leave_prob)
+        mesh = _mesh(device)
+        run = (_qp_exact_fn(with_matches, tables, mesh)
+               if mode == "qp" and _qp_exact()
+               else _wf_fn(_MODE_MODELS[mode], with_matches, tables, mesh))
 
         def to_csr(vals, lanes, k, li, lj):
             return topk_diag_to_csr(vals[:, k], lanes[:, k], li, lj)
-    for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device):
+    for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device,
+                                                 mesh=mesh):
         out = [o.cpu().numpy() for o in run(X, Y, LX, LY)]
         vals, idx, score = out[:3]
         for k, (i, j) in enumerate(chunk):
@@ -498,19 +645,29 @@ def viterbi_stat_batches(
 
     Yields (pair_chunk, path_len (nb,), matches (nb,),
     scores_rev (2*Lp, nb)); the (D, B, W) direction planes never leave the
-    device (they are consumed by wavefront.viterbi_path_stats).
+    device (they are consumed by wavefront.viterbi_path_stats).  With a
+    mesh, each device runs its share of a batch.
     """
     device = devlib.resolve(device)
     _, lo, _ = mp.log_tables("mix", None)
-    pl = {k: torch.as_tensor(np.asarray(lo[k], np.float32), device=device)
-          for k in ("lmatch", "lins", "trans")}
-    vinit = torch.as_tensor(VIT_INIT, device=device)
-    bl = torch.as_tensor(np.asarray(blosum, np.float32), device=device)
-    for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device):
-        dirs_s, ends, _ = wavefront.viterbi_wavefront(X, Y, LX, LY, pl, vinit)
-        plen, matches, scores_rev = wavefront.viterbi_path_stats(
-            dirs_s, ends, X, Y, LX, LY, bl
-        )
+    mesh = _mesh(device)
+
+    @functools.cache
+    def tables(dev):
+        pl = {k: torch.as_tensor(np.asarray(lo[k], np.float32), device=dev)
+              for k in ("lmatch", "lins", "trans")}
+        return (pl, torch.as_tensor(VIT_INIT, device=dev),
+                torch.as_tensor(np.asarray(blosum, np.float32), device=dev))
+
+    def body(x, y, lx, ly, pl, vinit, bl):
+        dirs_s, ends, _ = wavefront.viterbi_wavefront(x, y, lx, ly, pl,
+                                                      vinit)
+        return wavefront.viterbi_path_stats(dirs_s, ends, x, y, lx, ly, bl)
+
+    stats_fn = _shard_pairs(body, tables, mesh, (0, 0, 1))
+    for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device,
+                                                 mesh=mesh):
+        plen, matches, scores_rev = stats_fn(X, Y, LX, LY)
         yield (chunk, plen.cpu().numpy(), matches.cpu().numpy(),
                scores_rev.cpu().numpy())
 
@@ -529,3 +686,19 @@ def viterbi_batches(
     for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device):
         dirs, ends, _ = viterbi.viterbi_local(X, Y, LX, LY, lo)
         yield chunk, dirs.cpu().numpy(), ends.cpu().numpy()
+
+
+def all_pairs_viterbi(
+    seqs: Sequence[np.ndarray],
+    pairs: Sequence[tuple[int, int]] | None = None,
+    device="cuda",
+) -> Iterator[tuple[tuple[int, int], np.ndarray, int]]:
+    """Yield ((i, j), packed direction matrix (li+1, lj+1), end_state)
+    per pair, from `viterbi_batches`."""
+    n = len(seqs)
+    if pairs is None:
+        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    for chunk, dirs, ends in viterbi_batches(seqs, pairs, device):
+        for k, (i, j) in enumerate(chunk):
+            li, lj = len(seqs[i]), len(seqs[j])
+            yield (i, j), dirs[k, : li + 1, : lj + 1], int(ends[k])

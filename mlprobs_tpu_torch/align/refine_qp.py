@@ -95,6 +95,35 @@ def check_acceptance(
     return ok
 
 
+def update_column_scores(
+    alignment: MSA, ignore_terminal_gaps: bool = True
+) -> list[tuple[int, float]]:
+    """ColumnRefinement::updateColumnScores (ColumnRefinement.cpp:128+)
+    on a fresh vector, as the JAX package's function of this name.
+
+    Per column, the gap count inside each sequence's non-terminal
+    segment; stable-sorted by |N/2 - gaps| descending, zero-gap columns
+    dropped.  Returns [(column, gaps)].  The refinement itself keeps the
+    reference's stateful vector (`ColumnScoreState`).
+    """
+    rows = alignment.rows
+    n, length = rows.shape
+    if length == 0:
+        return []
+    isgap = rows < 0
+    inside = np.ones((n, length), dtype=bool)
+    if ignore_terminal_gaps:
+        res = ~isgap
+        first = res.argmax(axis=1)
+        last = length - 1 - res[:, ::-1].argmax(axis=1)
+        cols = np.arange(length)[None, :]
+        inside = (cols >= first[:, None]) & (cols <= last[:, None])
+    gaps = (isgap & inside).sum(axis=0).astype(np.float64)
+    keys = -np.abs(n / 2.0 - gaps)
+    order = np.lexsort((np.arange(length), keys))   # stable, desc dev
+    return [(int(c), float(gaps[c])) for c in order if gaps[c] != 0.0]
+
+
 class ColumnScoreState:
     """Stateful twin of ColumnRefinement::columnScores.
 
@@ -300,3 +329,8 @@ def tree_refinement(
         if observer is not None:
             observer(alignment, it)
     return alignment
+
+
+def entropy_score(alignment: MSA) -> float:
+    """The JAX package's name for `entropy_evaluator`."""
+    return entropy_evaluator(alignment)

@@ -7,11 +7,14 @@ the original; here a single einsum over per-column residue counts:
 
 with c the 20-class count vector of the column.  Gaps and non-standard
 residues contribute zero (reference getIdx returns -1 for both).  Host
-numpy in f64, as the pipeline scores its MSAs.
+numpy in f64, as the pipeline scores its MSAs; `column_scores_torch` is
+the f32 version for a tensor on any device (the JAX package's
+`column_scores_jnp`).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from mlprobs_tpu_torch.models.params import blosum62
 
@@ -35,6 +38,22 @@ def column_scores(rows: np.ndarray) -> np.ndarray:
     counts[:, 20] = 0.0
     total = np.einsum("lc,cd,ld->l", counts, b, counts)
     self_terms = np.where(valid, np.diag(b)[cls], 0.0).sum(axis=0)
+    pairs = n * (n - 1) / 2.0
+    return (total - self_terms) / 2.0 / pairs
+
+
+def column_scores_torch(rows: torch.Tensor) -> torch.Tensor:
+    """`column_scores` in f32 on the device of `rows` ((N, L) integer
+    tensor, -1 for gaps); (L,) scores."""
+    n = rows.shape[0]
+    b20 = torch.as_tensor(blosum62()[:20, :20], device=rows.device)
+    valid = (rows >= 0) & (rows < 20)
+    cls = torch.where(valid, rows, 20)
+    onehot = (torch.arange(20, device=rows.device)[None, None, :]
+              == cls[:, :, None]).to(torch.float32)       # (N, L, 20)
+    counts = onehot.sum(dim=0)                            # (L, 20)
+    total = torch.einsum("lc,cd,ld->l", counts, b20, counts)
+    self_terms = (counts * torch.diag(b20)[None, :]).sum(dim=1)
     pairs = n * (n - 1) / 2.0
     return (total - self_terms) / 2.0 / pairs
 

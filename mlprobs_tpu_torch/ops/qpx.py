@@ -11,6 +11,9 @@ scaled-probability sweep cannot reproduce the binary's posteriors; this
 module replays the reference arithmetic operation for operation: the
 same LOG_ADD orders, the same guards, the same LOG_ZERO = -2e20
 absorption, each polynomial as separate f32 multiplies and adds.
+`local_posterior_qpx` replays baseMSA's 3-state local model the same way
+(the JAX package's function of that name; nothing in the pipeline calls
+it).
 
 Recurrence source: ParallelProbabilisticModel::computeForwardMatrix /
 computeBackwardMatrix (ParallelProbabilisticModel.cpp:40-238),
@@ -343,3 +346,139 @@ def hmm5_posterior_qpx(xp, yp, lx, ly, init, trans, lmatch, lins):
         inside = (i_idx >= 1) & (lane >= 1) & (i_idx <= lxv) & (lane <= lyv)
         torch.where(inside, exp_ref(x), zero, out=fwd_m[d0:d1])
     return fwd_m
+
+
+def _shift1(v):
+    """lane j -> value at lane j-1, LOG_ZERO into lane 0."""
+    return torch.cat([torch.full_like(v[..., :1], LOG_ZERO), v[..., :-1]],
+                     dim=-1)
+
+
+def _shiftm1(v):
+    """lane j -> value at lane j+1, LOG_ZERO into the last lane."""
+    return torch.cat([v[..., 1:], torch.full_like(v[..., :1], LOG_ZERO)],
+                     dim=-1)
+
+
+def _guard(v, a, b=None):
+    """(v + a) - b, or LOG_ZERO where v is LOG_ZERO (the reference's
+    guard on a term from an unreached state)."""
+    r = v + a if b is None else v + a - b
+    return torch.where(v == LOG_ZERO, LOG_ZERO, r)
+
+
+def local_posterior_qpx(xp, yp, lx, ly, ltrans, log_stay, lmatch, lins):
+    """baseMSA 3-state local-HMM posterior, reference arithmetic.
+
+    The local model runs in ODDS space: every term carries
+    -insProb(x)-insProb(y) and -2*random_transProb[1] factors
+    (ProbabilisticModel.h:213-258 flag=false branches); flanking random
+    states let the alignment start/end anywhere, so the total
+    accumulates over ALL (i>0, j>0) cells (ibid:420-434).  As in the JAX
+    package, the totals are an exact stable log-sum-exp instead of the
+    reference's row-major LOG_PLUS_EQUALS chain; every recurrence keeps
+    the reference's LOG_ADD order and guards, one Python step a
+    diagonal where the JAX package runs a `lax.scan`.
+
+    xp/yp (B, Lp) classes; ltrans: (3, 3) log local transitions;
+    log_stay = log(1 - leave) (= random_transProb[1]); lmatch (21, 21);
+    lins (21,).  Returns the (D, B, W) posterior.
+    """
+    B, Lp = xp.shape
+    W, D = Lp + 1, 2 * Lp + 1
+    dev = xp.device
+    lane = torch.arange(W, device=dev)[None, :]
+    lxv = lx.to(torch.int64)[:, None]
+    lyv = ly.to(torch.int64)[:, None]
+    Z = torch.full((B, W), LOG_ZERO, dtype=torch.float32, device=dev)
+    rt1 = torch.as_tensor(log_stay, dtype=torch.float32, device=dev)
+    t = ltrans
+
+    # em'[d, b, j] = lmatch[x_i, y_j] - lins[x_i] - lins[y_j] - 2*rt1
+    pad = torch.full((B, 1), PAD, dtype=torch.long, device=dev)
+    xg = torch.cat([pad, xp.long()], dim=1)
+    yg = torch.cat([pad, yp.long()], dim=1)
+    d_idx = torch.arange(D, device=dev)[:, None]
+    i_idx = torch.clamp(d_idx - lane, 0, Lp)
+    xsk = xg[:, i_idx]                                   # (B, D, W)
+    em = (lmatch[xsk, yg[:, None, :]] - lins[xsk]
+          - lins[yg][:, None, :] - 2.0 * rt1)
+    em = em.movedim(0, 1).contiguous()                   # (D, B, W)
+    del xsk
+
+    fwd_m = torch.empty((D, B, W), dtype=torch.float32, device=dev)
+    p1 = p2 = (Z, Z, Z)
+    for d in range(D):
+        emr = em[d]
+        i = d - lane
+        # match: acc = em'; then LPE over the three d-2 states
+        acc = emr
+        for k in range(3):
+            prev = _shift1(p2[k])
+            acc = log_add(acc, torch.where(prev == LOG_ZERO, LOG_ZERO,
+                                           emr + prev + t[k, 0]))
+        m_new = torch.where((i >= 1) & (lane >= 1), acc, LOG_ZERO)
+        # X: (i-1, j) at d-1 same lane
+        x_new = log_add(_guard(p1[0], t[0, 1], rt1),
+                        _guard(p1[1], t[1, 1], rt1))
+        x_new = torch.where(i >= 1, x_new, LOG_ZERO)
+        # Y: (i, j-1) at d-1 lane j-1
+        y_new = log_add(_guard(_shift1(p1[0]), t[0, 2], rt1),
+                        _guard(_shift1(p1[2]), t[2, 2], rt1))
+        y_new = torch.where((lane >= 1) & (i >= 0), y_new, LOG_ZERO)
+        p1, p2 = (m_new, x_new, y_new), p1
+        fwd_m[d] = m_new
+
+    # backward: em' of the NEXT cell (i+1, j+1) = em[d+2] shifted -1
+    bwd_m = torch.empty((D, B, W), dtype=torch.float32, device=dev)
+    mask_j = lane < lyv
+    n1 = n2 = (Z, Z, Z)
+    for d in range(D - 1, -1, -1):
+        em_n = _shiftm1(em[d + 2]) if d + 2 < D else Z
+        i = d - lane
+        mask_i = i < lxv
+        valid = (i >= 0) & (i <= lxv) & (lane <= lyv)
+        pxy = _guard(_shiftm1(n2[0]), em_n)
+        mm = mask_i & mask_j
+        s2 = _shiftm1(n1[2])
+        # b0 starts at LOG_ONE everywhere (the alignment may end at any
+        # cell, ProbabilisticModel.h:339); order M, X, Y
+        b0 = torch.zeros_like(Z)
+        b0 = log_add(b0, torch.where(mm, _guard(pxy, t[0, 0]), LOG_ZERO))
+        b0 = log_add(b0, torch.where(mask_i, _guard(n1[1], t[0, 1], rt1),
+                                     LOG_ZERO))
+        b0 = log_add(b0, torch.where(mask_j, _guard(s2, t[0, 2], rt1),
+                                     LOG_ZERO))
+        bx = log_add(
+            torch.where(mm, _guard(pxy, t[1, 0]), LOG_ZERO),
+            torch.where(mask_i, _guard(n1[1], t[1, 1], rt1), LOG_ZERO),
+        )
+        by = log_add(
+            torch.where(mm, _guard(pxy, t[2, 0]), LOG_ZERO),
+            torch.where(mask_j, _guard(s2, t[2, 2], rt1), LOG_ZERO),
+        )
+        b0 = torch.where(valid, b0, LOG_ZERO)
+        n1, n2 = (b0, torch.where(valid, bx, LOG_ZERO),
+                  torch.where(valid, by, LOG_ZERO)), n1
+        bwd_m[d] = b0
+
+    # totals over all interior cells (exact stable LSE; see docstring)
+    i3 = torch.arange(D, device=dev)[:, None, None] - lane[None]
+    interior = ((i3 >= 1) & (lane[None] >= 1)
+                & (i3 <= lxv[None]) & (lane[None] <= lyv[None]))
+
+    def lse(plane):
+        mx = torch.where(interior, plane, -torch.inf).amax(dim=(0, 2))
+        s = torch.where(interior, torch.exp(plane - mx[None, :, None]),
+                        0.0).sum(dim=(0, 2))
+        return mx + torch.log(s)
+
+    total_f = lse(fwd_m)
+    total_b = lse(bwd_m + em)
+    del em
+    total = (total_f + total_b) * 0.5
+
+    tot = torch.where(total == 0.0, 1.0, total)[None, :, None]
+    fwd_m.add_(bwd_m).sub_(tot).clamp_(max=0.0)
+    del bwd_m
+    return torch.where(interior, exp_ref(fwd_m), 0.0)

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from mlprobs_tpu_torch.align import aligner, pairwise  # noqa: E402
 from mlprobs_tpu_torch.ops.kernels import build  # noqa: E402
 from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk  # noqa: E402
+from mlprobs_tpu_torch.parallel.mesh import pairs_mesh  # noqa: E402
 from mlprobs_tpu_torch.pipeline import cli, driver, realign  # noqa: E402
 from mlprobs_tpu_torch.utils.synth import synthetic_family  # noqa: E402
 
@@ -110,6 +111,7 @@ NON_PROGRESSIVE = (16, 12, 24, 0.5, 0.1, 2)
     "run_pipeline", "cli_align", "align_family_np", "cli_base_np",
     "run_pipeline_np", "cli_bench", "cli_base_flags",
     "all_pairs_posteriors_scan", "all_pairs_posteriors_qp_scaled",
+    "all_pairs_posteriors_mesh", "all_pairs_viterbi", "hmm5_dict",
 ])
 def test_entry_points_need_the_card_unless_asked_for_cpu(no_cuda, entry,
                                                          tmp_path,
@@ -143,11 +145,20 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(no_cuda, entry,
         "all_pairs_posteriors_qp_scaled":
             lambda **kw: list(pairwise.all_pairs_posteriors(seqs, "qp",
                                                             **kw)),
+        "all_pairs_posteriors_mesh":
+            lambda **kw: list(pairwise.all_pairs_posteriors(seqs, "mix",
+                                                            **kw)),
+        "all_pairs_viterbi":
+            lambda **kw: list(pairwise.all_pairs_viterbi(seqs, **kw)),
+        "hmm5_dict": lambda **kw: pairwise.hmm5_dict(**kw),
     }
     if entry == "all_pairs_posteriors_scan":
         monkeypatch.setenv("MLPROBS_POSTERIOR_ENGINE", "scan")
     if entry == "all_pairs_posteriors_qp_scaled":
         monkeypatch.setenv("MLPROBS_QP_EXACT", "0")
+    if entry == "all_pairs_posteriors_mesh":
+        monkeypatch.setattr(pairwise, "_mesh",
+                            lambda device="cuda": pairs_mesh(["cpu"] * 2))
     if entry == "cli_bench":
         suite = tmp_path / "suite"
         suite.mkdir()

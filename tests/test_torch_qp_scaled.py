@@ -133,8 +133,8 @@ def test_scaled_route_is_the_two_model_kernels(monkeypatch):
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
     for chunk, X, Y, LX, LY in tpw.iter_pair_batches(
             seqs, pairs, torch.device("cpu"), force_lp=got.S.shape[-1]):
-        dense, _ = tpw._wf_dense_fn(("hmm5", "partition"))(
-            X, Y, LX, LY, tabs_f, tabs_r)
+        dense, _ = tpw._wf_dense_fn(("hmm5", "partition"),
+                                    lambda dev: (tabs_f, tabs_r))(X, Y, LX, LY)
         for k, (i, j) in enumerate(chunk):
             assert torch.equal(got.S[i, j], dense[k])
     # and not the qpx route's planes
