@@ -6,16 +6,21 @@
 Every phase runs unsharded (MLPROBS_MULTICHIP=0) but [multichip], which
 sets its meshes itself.  Phases (any failure exits non-zero):
  1. device: the card's name and power limit, torch and CUDA versions;
- 2. build: both kernels from the repository's .cu sources with nvcc;
+ 2. build: the four kernels from the repository's .cu sources, one nvcc
+    each, in parallel, then the host library (utils/host.py) with g++,
+    each build's seconds;
  3. kernels against their plain PyTorch versions on the card, for every
     model set, at Lp=512/B=64 and Lp=128/B=3: sweep planes, scales and
     totals; dense combine; the fused top-k against `topk_skew` of the
     kernel's own dense plane; MWT match counts.  The sweep's scales must
-    equal the plain version's in every row.  Then each kernel's time at
-    the main path's shapes beside its plain version's and its bound
-    (combine in each mode: dense, with match counts, top-k 16, and dense
-    again at the family's last batch size), and the sweep's time for
-    each single-model set;
+    equal the plain version's in every row.  The feature pass's Viterbi
+    kernel and the qpx forward/backward kernels at Lp=128/B=8 and at the
+    main shape, ragged lengths: every returned tensor equal to the plain
+    version's bit for bit.  Then each kernel's time at the main path's
+    shapes beside its plain version's and its bound (combine in each
+    mode: dense, with match counts, top-k 16, and dense again at the
+    family's last batch size), and the sweep's time for each
+    single-model set;
  4. the main path: a seeded twilight-zone family (N=48, 330-470
     residues) through `align_family(config="pnp")` on the card, with
     the kernels' launch counts, per-stage wall clock and peak memory;
@@ -24,13 +29,14 @@ sets its meshes itself.  Phases (any failure exits non-zero):
     share), and the consistency tensor rebuilt with the plain versions
     on the card must agree with the kernels' tensor;
  5. [qp]: the realigner's qp posterior (`_qpx_combined_skew`: the qpx
-    hmm5 posterior in plain torch, the partition half through the sweep
+    kernels' hmm5 posterior, the partition half through the sweep
     kernel) on the card against the CPU plain version at Lp=128/B=8
-    (atol 2e-4); then at the smoke family's qp shape (Lp=512, its batch
-    size) the times of the qpx forward+backward, of the two partition
-    sweeps and of the whole qp batch, its peak bytes against the batch
-    budget of 80 bytes per (pair, cell), and one profiler window around
-    a qpx pass (Lp=128, B=256);
+    (hmm5 half bit-equal, the whole atol 2e-4); then at the smoke
+    family's qp shape (Lp=512, its batch size) the times of the qpx
+    kernels and of their plain version, of the two partition sweeps and
+    of the whole qp batch, its peak bytes against the batch budget of 80
+    bytes per (pair, cell), and one profiler window around the kernels'
+    pass;
  6. [pipeline]: `run_pipeline` (the `cli align` path) on the smoke family
     on the card: decisions, stage marks, launches, hash, peak bytes; no
     crash fallback, no block error, rows degap to the inputs;
@@ -60,9 +66,11 @@ sets its meshes itself.  Phases (any failure exits non-zero):
     run's feature statistics (the one stage not repeated): equal hashes
     (if not, each stage of its path runs twice to name the one that
     varies, and the run fails at its end, after the later phases);
-12. [long]: both kernels at B=1, Lp=8,320 (the long family's length,
-    past the short instances) against their plain versions, and their
-    times at B=1 at Lp=8,192 and 8,320; then `cli base` on a
+12. [long]: sweep and combine at B=1, Lp=8,320 (the long family's
+    length, past the short instances) against their plain versions, the
+    Viterbi kernel there bit for bit (its rings past shared memory), and
+    the three kernels' times at B=1 at Lp=8,192 and 8,320; then `cli
+    base` on a
     three-sequence family with one sequence of 8,250 residues (every
     pair past 8,192 lanes or beside it): wall time, stage timers,
     validity, launches;
@@ -85,7 +93,8 @@ sets its meshes itself.  Phases (any failure exits non-zero):
 17. [multichip]: the sharded pair stages on a pairs mesh of the card
     twice and, on a machine with two or more cards, on up to four of
     them (what MLPROBS_MULTICHIP=1 gives there), set in place of
-    `pairwise._mesh`: each card's kernels against their plain versions,
+    `pairwise._mesh`: each card's kernels against their plain versions
+    (the Viterbi and qpx kernels bit for bit),
     `base` on the smoke family and `run_pipeline` on the small family
     through the production routes beside the same runs unsharded in the
     phase (hashes, which must be [main]'s and [pipeline-cpu]'s, wall
@@ -98,9 +107,10 @@ sets its meshes itself.  Phases (any failure exits non-zero):
 19. [library]: `local_posterior_qpx` at Lp=512/B=32 on the card against
     the CPU (atol 2e-5, rtol 1e-3), and `column_scores_torch` of the smoke
     family's MSA on the card against the host scores (atol 1e-6).
-Each path is driven with the launch counts set to 0 just before it and
-read just after (a subprocess reports its own); a path that launched
-none of its kernels fails.
+Each path is driven with the launch counts of the four kernels set to 0
+just before it and read just after (a subprocess reports its own); a
+path that did not launch every kernel it runs fails: the feature pass
+runs the Viterbi kernel, a qp batch the qpx kernels.
 Before the last line come the kernels' JSON record and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.
 """
@@ -124,6 +134,17 @@ CARD_BYTES = 3.35e12        # H100 SXM HBM3 bandwidth, bytes/s
 # square-accumulate) and per cell (RMS and the MWT step)
 SWEEP_OPS = {"hmm5": 46, "local": 25, "partition": 17}
 COMBINE_OPS_PER_MODEL, COMBINE_OPS_CELL = 6, 8
+# csrc/viterbi.cu: 10 adds and 4 maxes a cell (the traceback's steps, a
+# few thousand a pair, not counted); csrc/qpx.cu: 98 a cell and
+# direction, each LOG_ADD counted as max, min, subtract, the cubic's 3
+# multiplies and 3 adds, and the add of lo
+VITERBI_OPS_CELL = 14
+QPX_OPS_CELL = 2 * 98
+KERNELS = ("sweep", "combine", "viterbi", "qpx")
+# the kernels each path runs: the pnp base (feature pass, posteriors),
+# the realigner (qpx hmm5 half, partition sweeps), both
+BASE_KERNELS = ("sweep", "combine", "viterbi")
+REALIGN_KERNELS = ("sweep", "qpx")
 TOL = {
     "plane": 1e-5,      # sweep planes on one scale, relative to the row max
     "l2t": 2e-4,        # log2 totals: 2e-4 in log2 ~ 1.4e-4 relative
@@ -217,26 +238,6 @@ def profiled(fn):
     return out, rec
 
 
-def ops_per_diagonal(fn, lp: int) -> float:
-    """Non-view aten ops that fn() dispatches, over its 2*lp+1 diagonals
-    (each a device launch on the card, but for a few host-side scalars)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            ret = func._schema.returns
-            if not (ret and ret[0].alias_info is not None
-                    and not ret[0].alias_info.is_write):
-                Count.n += 1
-            return func(*args, **(kwargs or {}))
-
-    with Count():
-        fn()
-    return Count.n / (2 * lp + 1)
-
-
 ROOT = Path(__file__).resolve().parent
 # the sector family's hashes in three earlier card runs, before the host
 # scatter summed in one order
@@ -246,14 +247,34 @@ SECTOR_HASHES_BEFORE = ("57501cc5c61c46df", "e4bfdc9515cd074b",
 # kernels' launches of its process on its last line
 CLI_WITH_LAUNCHES = (
     "import json, runpy, sys\n"
+    "from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk\n"
+    "from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk\n"
     "from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk\n"
     "try:\n"
     "    runpy.run_module('mlprobs_tpu_torch.pipeline.cli',\n"
     "                     run_name='__main__', alter_sys=True)\n"
     "finally:\n"
     "    print('LAUNCHES ' + json.dumps({'sweep': wk.sweep.launches,\n"
-    "          'combine': wk.combine.launches}), flush=True)\n"
+    "          'combine': wk.combine.launches,\n"
+    "          'viterbi': vk.viterbi_stats.launches,\n"
+    "          'qpx': qk.hmm5_fb.launches}), flush=True)\n"
 )
+
+
+def launch_counts() -> dict:
+    """{kernel: launches since the last reset_launch_counts()}."""
+    from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk
+    from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk
+    from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
+
+    return {"sweep": wk.sweep.launches, "combine": wk.combine.launches,
+            "viterbi": vk.viterbi_stats.launches,
+            "qpx": qk.hmm5_fb.launches}
+
+
+def unlaunched(launched: dict, names) -> list:
+    """The kernels of `names` that `launched` counts no launch of."""
+    return [n for n in names if launched.get(n, 0) < 1]
 # host.profile_posterior of one process at its OpenMP thread count,
 # three calls on the same input (an .npz written by scatter_input)
 SCATTER_RUN = (
@@ -347,6 +368,33 @@ def scatter_reference(z):
     out = np.bincount(np.concatenate(idx), weights=np.concatenate(val),
                       minlength=l1 * l2).reshape(l1, l2)
     return (out + sub).astype(np.float32)
+
+
+def feature_kernels_equal(X, Y, LX, LY) -> dict:
+    """{output: equal bit for bit} of the Viterbi kernel and the qpx
+    kernels against their plain versions on one card batch (the qpx
+    posterior pass over each side's planes included)."""
+    import torch
+    from mlprobs_tpu_torch.align import pairwise
+    from mlprobs_tpu_torch.ops import qpx
+    from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk
+    from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk
+
+    tabs = pairwise.viterbi_tables(pairwise.mp.blosum62(), X.device)
+    out = {}
+    for n, a, b in zip(
+            ("dirs", "end_state", "score", "pathlen", "matches",
+             "scores_rev"), vk.viterbi_stats(X, Y, LX, LY, *tabs),
+            vk.viterbi_reference(X, Y, LX, LY, *tabs)):
+        out["viterbi." + n] = bool(torch.equal(a, b))
+    p5 = pairwise._qpx_params(X.device)
+    k = qk.hmm5_fb(X, Y, LX, LY, *p5)
+    p = qpx.hmm5_fb_qpx(X, Y, LX, LY, *p5)
+    for n, a, b in zip(("fwd_m", "bwd_m", "total"), k, p):
+        out["qpx." + n] = bool(torch.equal(a, b))
+    out["qpx.posterior"] = bool(torch.equal(
+        qpx.posterior_from_fb(*k, LX, LY), qpx.posterior_from_fb(*p, LX, LY)))
+    return out
 
 
 def phase_determinism_host(work):
@@ -559,7 +607,7 @@ def phase_qp_scaled(dev, batch, cuda_ms, records, default_hash, small,
             "hashes_equal": srep.final_hash == hrep.final_hash}
     print("[qp-scaled] small family: " + json.dumps(srec), flush=True)
     if (not rec["valid"] or rep.crash_fallback or rep.block_errors
-            or min(launched.values()) < 1):
+            or unlaunched(launched, BASE_KERNELS)):
         fail(f"the scaled qp route's pipeline failed on the card: {rec}")
     if not srec["hashes_equal"] or not valid_msa(smsa, small) \
             or srep.crash_fallback or srep.block_errors:
@@ -627,7 +675,7 @@ def phase_bench(work, families, golden_msa, dev_args):
     print("[bench] " + json.dumps(rec), flush=True)
     line = next((ln for ln in lines if ln.startswith(first + ":")), "")
     if "sp=1.000 tc=1.000" not in line or summary["families"] != 2 \
-            or min(launched.values()) < 1:
+            or unlaunched(launched, KERNELS):
         fail(f"cli bench did not score the [pipeline] MSA as itself: {rec}")
     return launched
 
@@ -647,8 +695,8 @@ def phase_annot(work, records, dev_args):
     --autosave 1` on the smoke family (the realigner, whose refinement
     autosaves): one score in 0-200 per column, and a ClustalW file that
     parses back into the final MSA (the last autosave).  The realigner's
-    qpx route runs the sweep kernel alone (its hmm5 half is plain torch),
-    so only the sweep must have launched."""
+    qpx route runs the qpx kernels (its hmm5 half) and the sweep (its
+    partition half), and they must have launched."""
     from mlprobs_tpu_torch.core.fasta import read_fasta, write_fasta
 
     inp, out = work / "annot_in.fa", work / "annot_out.aln"
@@ -676,7 +724,7 @@ def phase_annot(work, records, dev_args):
     if not (rec["rows_degap_to_inputs"] and rec["clustal_equals_last_autosave"]
             and rec["annot_lines"] == rec["columns"] > 0
             and 0 <= rec["annot_range"][0] <= rec["annot_range"][1] <= 200
-            and launched["sweep"] >= 1):
+            and not unlaunched(launched, REALIGN_KERNELS)):
         fail(f"cli base --annot --clustalw --autosave failed: {rec}")
     return launched
 
@@ -736,8 +784,8 @@ def phase_multichip(dev, batch, records, small, seqs, leave, drive,
                                   "valid": valid_msa(smsa, small)}}
         ok = (rec["base"]["valid"] and rec["pipeline_small"]["valid"]
               and rep.get("consistency_engine") == "device"
-              and min(launched.values()) >= 1
-              and min(slaunch.values()) >= 1
+              and not unlaunched(launched, BASE_KERNELS)
+              and not unlaunched(slaunch, KERNELS)
               and not srep.crash_fallback and not srep.block_errors)
         return rec, ok, launched
 
@@ -762,7 +810,7 @@ def phase_multichip(dev, batch, records, small, seqs, leave, drive,
             pairwise._mesh = lambda device="cuda", mesh=mesh: mesh
             cards = sorted({d.index for d in mesh.devices})
             # each distinct card's kernels against their plain versions
-            kernel_err = {}
+            kernel_err, feature_equal = {}, {}
             mix = MODEL_SETS["mix"]
             for k in cards:
                 d = torch.device(dev.type, k)
@@ -779,6 +827,8 @@ def phase_multichip(dev, batch, records, small, seqs, leave, drive,
                     lx, ly, trd, models=mix, emit_pre=True)
                 post_p, _ = wk.combine_reference(fwd, rev, lx, ly, mix)
                 kernel_err[str(d)] = float((post_k - post_p).abs().max())
+                feature_equal[str(d)] = feature_kernels_equal(
+                    *batch(128, 3, seed=k + 3, device=d))
             rec, ok, launched = runs(sorted(set(mesh.devices), key=str))
             # the stages against the unsharded route on the same inputs
             p1, s1 = sharded.make_sharded_posterior_step(mesh)(X, Y, LX, LY)
@@ -794,7 +844,8 @@ def phase_multichip(dev, batch, records, small, seqs, leave, drive,
             rec = {
                 "mesh": [str(d) for d in mesh.devices],
                 "cards": [torch.cuda.get_device_name(k) for k in cards],
-                "kernel_vs_plain_err": kernel_err, **rec,
+                "kernel_vs_plain_err": kernel_err,
+                "viterbi_qpx_bit_equal": feature_equal, **rec,
                 "unsharded_hashes": [main_hash, small_hash],
                 "posterior_step_err": float((p1 - p0).abs().max()),
                 "posterior_step_score_err": float((s1 - s0).abs().max()),
@@ -808,7 +859,9 @@ def phase_multichip(dev, batch, records, small, seqs, leave, drive,
             del p1, tensor1, want, got
             if first is None:
                 first = launched
-            if max(kernel_err.values()) > TOL["post"] or not ok:
+            if (max(kernel_err.values()) > TOL["post"] or not ok
+                    or not all(all(v.values())
+                               for v in feature_equal.values())):
                 fail(f"a sharded route failed: {rec}")
             if (rec["posterior_step_err"] > 0 or not rec["tensor_equal"]
                     or not rec["dist_equal"]
@@ -932,8 +985,11 @@ def main() -> None:
         from mlprobs_tpu_torch.models import forests
         from mlprobs_tpu_torch.ops import qpx
         from mlprobs_tpu_torch.ops.kernels import build
+        from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk
+        from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk
         from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
         from mlprobs_tpu_torch.pipeline.driver import run_pipeline
+        from mlprobs_tpu_torch.utils import host
         from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
         from mlprobs_tpu_torch.utils.synth import synthetic_family
     except ImportError as e:
@@ -960,10 +1016,15 @@ def main() -> None:
 
     # ---- 2. build --------------------------------------------------------
     info = build.build_all()
-    print(f"[build] sweep+combine nvcc in {info['seconds']:.2f} s", flush=True)
+    print(f"[build] {'+'.join(build.KERNELS)} nvcc in {info['seconds']:.2f} s",
+          flush=True)
     for name, log in info["logs"].items():
         for line in ptxas_summary(log):
             print(f"[build:{name}] {line}")
+    t0 = time.perf_counter()
+    host.lib()
+    print(f"[build] host library (csrc/host.cpp) g++ in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     wk.reset_launch_counts()
 
     def valid_msa(msa, recs):
@@ -984,8 +1045,7 @@ def main() -> None:
         out = fn()
         torch.cuda.synchronize()
         wall_ = time.perf_counter() - t0
-        launched = {"sweep": wk.sweep.launches,
-                    "combine": wk.combine.launches}
+        launched = launch_counts()
         timers = {k[5:]: v for k, v in STATS.to_dict().items()
                   if k.startswith("time.")}
         return out, wall_, launched, torch.cuda.max_memory_allocated(), \
@@ -993,7 +1053,7 @@ def main() -> None:
 
     # ---- 3. kernels against their plain versions -------------------------
     clock("check")
-    def batch(lp, b, seed):
+    def batch(lp, b, seed, device=None):
         rng = torch.Generator().manual_seed(seed)
         lens = torch.randint(lp // 2, lp + 1, (b,), generator=rng)
         lens[0] = lp
@@ -1005,8 +1065,9 @@ def main() -> None:
                                             generator=rng)
             Y[k, : ly[k]] = torch.randint(0, 20, (int(ly[k]),),
                                           generator=rng)
-        return (X.to(dev), Y.to(dev), lens.to(torch.int32).to(dev),
-                ly.to(torch.int32).to(dev))
+        d = device or dev
+        return (X.to(d), Y.to(d), lens.to(torch.int32).to(d),
+                ly.to(torch.int32).to(d))
 
     records = synthetic_family(48, 330, 470, sub=0.5, indel=0.1, seed=48)
     small = synthetic_family(6, 40, 90, sub=0.2, indel=0.05, seed=5)
@@ -1105,6 +1166,17 @@ def main() -> None:
             worst["sweep"] = max(worst["sweep"], e_plane)
             worst["combine"] = max(worst["combine"], e_post)
 
+    def check_features(X, Y, LX, LY):
+        # the Viterbi and qpx kernels: every output bit for bit
+        eq = feature_kernels_equal(X, Y, LX, LY)
+        print(f"[check] viterbi+qpx Lp={X.shape[1]} B={X.shape[0]} "
+              f"bit-equal: " + json.dumps(eq), flush=True)
+        if not all(eq.values()):
+            fail(f"the Viterbi or qpx kernel differs from its plain "
+                 f"version at Lp={X.shape[1]} B={X.shape[0]}: {eq}")
+
+    check_features(*batch(128, 8, seed=136))
+
     # timing at the main path's shapes: Lp=512, the budgeted batch, mix
     clock("timing")
     def cuda_ms(fn, reps, warm=True):
@@ -1158,6 +1230,21 @@ def main() -> None:
             cuda_ms(lambda: wk.combine_reference(f_, r_, lx_, ly_, models,
                                                  **kw), 3),
         )
+    # the Viterbi and qpx kernels on the same batch, after holding them
+    # there; their plain versions once each (seconds a call)
+    check_features(X, Y, LX, LY)
+    worst["viterbi"] = worst["qpx"] = 0.0   # bit-equal, checked above
+    tabs_v = pairwise.viterbi_tables(pairwise.mp.blosum62(), dev)
+    p5 = pairwise._qpx_params(dev)
+    timing["viterbi"] = (
+        cuda_ms(lambda: vk.viterbi_stats(X, Y, LX, LY, *tabs_v), 7),
+        cuda_ms(lambda: vk.viterbi_reference(X, Y, LX, LY, *tabs_v), 1,
+                warm=False),
+    )
+    timing["qpx"] = (
+        cuda_ms(lambda: qk.hmm5_fb(X, Y, LX, LY, *p5), 7),
+        cuda_ms(lambda: qpx.hmm5_fb_qpx(X, Y, LX, LY, *p5), 1, warm=False),
+    )
 
     def bound(nbytes, ops):
         tb, to = nbytes / CARD_BYTES * 1e3, ops / CARD_F32_OPS * 1e3
@@ -1178,6 +1265,17 @@ def main() -> None:
     bounds = {"sweep": bound(sweep_bytes, sweep_ops)}
     for name, args in comb_modes.items():
         bounds[name] = comb_bound(args[2].shape[0], **args[4])
+    # Viterbi: x, y, lx, ly and the table block read once; the int8
+    # direction plane, four (B,) outputs and the (2Lp, B) scores written.
+    # qpx: the same inputs; the two padded (D+2, B, W+1) planes and the
+    # totals written
+    ins = 2 * b * lp + 8 * b
+    bounds["viterbi"] = bound(
+        ins + vk.TAB_SIZE * 4 + D * b * W + 16 * b + 2 * lp * b * 4,
+        VITERBI_OPS_CELL * D * W * b)
+    bounds["qpx"] = bound(
+        ins + qk.TAB_SIZE * 4 + 2 * (D + 2) * b * (W + 1) * 4 + 4 * b,
+        QPX_OPS_CELL * D * W * b)
     # the sweep of each single-model set on the same batch: which kind
     # sets the pace of the mix launch
     single = {m: cuda_ms(lambda m=m: wk.sweep(X, Y, zero, zero, LX, LY,
@@ -1202,7 +1300,7 @@ def main() -> None:
                                report=report, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"sweep": wk.sweep.launches, "combine": wk.combine.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     stages = {k[5:]: v for k, v in STATS.to_dict().items()
               if k.startswith("time.")}
@@ -1212,7 +1310,7 @@ def main() -> None:
         "peak_device_bytes": peak, "report": report,
         "content_hash": msa.content_hash(), "columns": msa.length,
     }), flush=True)
-    if min(launches.values()) < 1:
+    if unlaunched(launches, BASE_KERNELS):
         fail(f"the main path did not run every kernel: {launches}")
     if report.get("consistency_engine") != "device" \
             or "consistency_downgrade" in report:
@@ -1262,16 +1360,18 @@ def main() -> None:
     X, Y, LX, LY = batch(128, 8, seed=128)
     cpu_args = [t.cpu() for t in (X, Y, LX, LY)]
     p5 = pairwise._qpx_params(dev)
-    ph_k = qpx.hmm5_posterior_qpx(X, Y, LX, LY, *p5)
+    ph_k = qk.hmm5_posterior(X, Y, LX, LY, *p5)
     ph_c = qpx.hmm5_posterior_qpx(*cpu_args, *pairwise._qpx_params(
         torch.device("cpu")))
     post_k = pairwise._qpx_combined_skew(X, Y, LX, LY, qtf, qtr)
     post_c = pairwise._qpx_combined_skew(*cpu_args, qtf_c, qtr_c)
     qp_err = float((post_k.cpu() - post_c).abs().max())
     qp_rec = {"lp": 128, "b": 8, "qp_post_err": qp_err,
-              "hmm5_qpx_err": float((ph_k.cpu() - ph_c).abs().max())}
-    print("[qp] card vs cpu: " + json.dumps(qp_rec), flush=True)
-    if qp_err > TOL["post"]:
+              "hmm5_qpx_err": float((ph_k.cpu() - ph_c).abs().max()),
+              "hmm5_qpx_bit_equal": bool(torch.equal(ph_k.cpu(), ph_c))}
+    print("[qp] card (kernels) vs cpu (plain): " + json.dumps(qp_rec),
+          flush=True)
+    if qp_err > TOL["post"] or not qp_rec["hmm5_qpx_bit_equal"]:
         fail(f"qp posterior on the card disagrees with the CPU: {qp_rec}")
     del ph_k, ph_c, post_k, post_c
 
@@ -1282,28 +1382,26 @@ def main() -> None:
     base_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t_batch = cuda_ms(lambda: pairwise._qpx_combined_skew(
-        X, Y, LX, LY, qtf, qtr), 1, warm=False)
+        X, Y, LX, LY, qtf, qtr), 3)
     qp_peak = torch.cuda.max_memory_allocated() - base_bytes
-    t_fb = cuda_ms(lambda: qpx.hmm5_fb_qpx(X, Y, LX, LY, *p5), 1,
-                   warm=False)
+    t_fb = cuda_ms(lambda: qk.hmm5_fb(X, Y, LX, LY, *p5), 7)
+    t_fb_plain = cuda_ms(lambda: qpx.hmm5_fb_qpx(X, Y, LX, LY, *p5), 1,
+                         warm=False)
     t_sw = cuda_ms(lambda: wk.sweeps(X, Y, LX, LY, qtf, qtr,
                                      ("partition",)), 3)
     per_cell = qp_peak / (bq * lp * lp)
-    qp_rec = {"lp": lp, "b": bq, "qpx_fb_ms": t_fb,
+    qp_rec = {"lp": lp, "b": bq, "qpx_kernels_ms": t_fb,
+              "qpx_plain_ms": t_fb_plain,
               "partition_sweeps_ms": t_sw, "qp_batch_ms": t_batch,
               "peak_bytes": qp_peak,
               "peak_bytes_per_pair_cell": per_cell, "budget_per_cell": 80}
     print("[qp] timing: " + json.dumps(qp_rec), flush=True)
     if per_cell > 80:
         fail(f"a qp batch outgrows the batch budget: {qp_rec}")
-    Xp, Yp, LXp, LYp = batch(128, 256, seed=12)
-    _, prof = profiled(lambda: qpx.hmm5_fb_qpx(Xp, Yp, LXp, LYp, *p5))
-    small_batch = batch(64, 4, seed=13)
-    prof["ops_per_diagonal_pair"] = ops_per_diagonal(
-        lambda: qpx.hmm5_fb_qpx(*small_batch, *p5), 64)
-    print("[qp] profile of one qpx forward+backward (Lp=128, B=256): "
-          + json.dumps(prof), flush=True)
-    del X, Y, LX, LY, Xp, Yp, LXp, LYp
+    _, prof = profiled(lambda: qk.hmm5_fb(X, Y, LX, LY, *p5))
+    print(f"[qp] profile of the qpx kernels' forward+backward (Lp={lp}, "
+          f"B={bq}): " + json.dumps(prof), flush=True)
+    del X, Y, LX, LY
 
     # ---- 6. [pipeline]: cli align's path on the smoke family -------------
     clock("pipeline")
@@ -1327,7 +1425,7 @@ def main() -> None:
              f"{prep.block_errors}")
     if not valid_msa(pmsa, records):
         fail("the pipeline's MSA does not degap to its input records")
-    if min(plaunch.values()) < 1:
+    if unlaunched(plaunch, KERNELS):
         fail(f"the pipeline did not run every kernel: {plaunch}")
 
     # ---- 7. [realigner]: align_family(config="quickprobs") ---------------
@@ -1351,8 +1449,8 @@ def main() -> None:
         qengine = qreport.get("consistency_engine")
         if not valid_msa(qmsa, records):
             fail("the realigner's MSA does not degap to its input records")
-        if qlaunch["sweep"] < 1:
-            fail(f"the realigner did not run the sweep kernel: {qlaunch}")
+        if unlaunched(qlaunch, REALIGN_KERNELS):
+            fail(f"the realigner did not run its kernels: {qlaunch}")
     print("[realigner] " + json.dumps(qrec, default=float), flush=True)
     if qengine != "device":
         fail(f"the realigner's consistency left the device: {qrec}")
@@ -1399,7 +1497,7 @@ def main() -> None:
                  f"{crep.error} {crep.block_errors}")
         if not (valid_msa(cmsa, small) and valid_msa(hmsa, small)):
             fail("a small-family MSA does not degap to its input records")
-        if min(claunch.values()) < 1:
+        if unlaunched(claunch, KERNELS):
             fail(f"the small family's pipeline did not run every kernel: "
                  f"{claunch}")
     # a two-sequence block: the realigner's sparse (top-k) qp route
@@ -1413,7 +1511,7 @@ def main() -> None:
         "cuda_hash": tmsa.content_hash(), "cpu_hash": tcpu.content_hash(),
         "hashes_equal": tmsa.content_hash() == tcpu.content_hash(),
     }), flush=True)
-    if not valid_msa(tmsa, pair) or tlaunch["sweep"] < 1:
+    if not valid_msa(tmsa, pair) or unlaunched(tlaunch, REALIGN_KERNELS):
         fail(f"the two-sequence realign failed on the card: {tlaunch}")
 
     # ---- 9. [np]: the non-progressive base aligner ------------------------
@@ -1433,7 +1531,7 @@ def main() -> None:
     }, default=float), flush=True)
     if not valid_msa(nmsa, records):
         fail("the NP base MSA does not degap to its input records")
-    if min(nlaunch.values()) < 1:
+    if unlaunched(nlaunch, BASE_KERNELS):
         fail(f"the NP path did not run every kernel: {nlaunch}")
     np_family = synthetic_family(16, 12, 24, sub=0.5, indel=0.1, seed=2)
     (cmsa, crep), cwall, claunch, _, _ = drive(
@@ -1454,7 +1552,7 @@ def main() -> None:
     if crep.final_hash != hrep.final_hash or crep.crash_fallback \
             or crep.block_errors or not valid_msa(cmsa, np_family):
         fail(f"the NP family's pipeline differs on the card: {rec}")
-    if min(claunch.values()) < 1:
+    if unlaunched(claunch, BASE_KERNELS):
         fail(f"the NP family's pipeline did not run every kernel: {claunch}")
 
     # ---- 10. [sector]: a family over the dense tensor's budget -------------
@@ -1505,7 +1603,7 @@ def main() -> None:
         fail(f"the over-budget family did not relax by sectors: {rec}")
     if relax_seen["peak_bytes_above_base"] > plan["predicted_peak_bytes"]:
         fail(f"the sector step outgrew its predicted peak: {rec}")
-    if not valid_msa(smsa, big) or min(slaunch.values()) < 1:
+    if not valid_msa(smsa, big) or unlaunched(slaunch, BASE_KERNELS):
         fail(f"the sector family's MSA or launches are wrong: {rec}")
     # several blocks on the card against the same call on the CPU
     sub_seqs = [degap(encode(q)) for _, q in big[:8]]
@@ -1543,7 +1641,8 @@ def main() -> None:
     clock("long")
     # The check runs at Lp = 8,320, the length the long family below
     # takes: past the short instances, so the sweep at 32 lanes a thread
-    # and combine's tiled DP, in each mode the path runs (the card tests
+    # and combine's tiled DP, in each mode the path runs, and the Viterbi
+    # kernel with its rings in L2 past 4,096 lanes (the card tests
     # hold 8,192, the short instances' last length, and 8,320 as well;
     # here one length keeps the run near half its limit, the plain
     # versions' 16,641-diagonal loops being the slow part).  The log2
@@ -1589,7 +1688,12 @@ def main() -> None:
             if wm:
                 topk_rest &= bool(torch.equal(out[3], nb_k))
             del out
+        # the Viterbi kernel with its rings past shared memory
+        v_equal = all(bool(torch.equal(a_, b_)) for a_, b_ in zip(
+            vk.viterbi_stats(X, Y, LX, LY, *tabs_v),
+            vk.viterbi_reference(X, Y, LX, LY, *tabs_v)))
         chk = long_rec[f"check_lp{lp_chk}"] = {
+            "viterbi_bit_equal": v_equal,
             "plane_err": e_plane, "scale_rows_differing": scale_rows,
             "l2t_kernel_plain": l2t_pairs, "l2t_ok": l2t_ok,
             "post_err": e_post, "pad_nonzero": pad_nonzero,
@@ -1599,7 +1703,8 @@ def main() -> None:
             "topk_err": topk_err, "topk_lanes_equal": topk_lanes,
             "topk_score_matches_equal": topk_rest}
         print("[long] " + json.dumps(chk), flush=True)
-        if not (e_plane <= TOL["plane"] and scale_rows == 0 and l2t_ok
+        if not (v_equal and e_plane <= TOL["plane"] and scale_rows == 0
+                and l2t_ok
                 and e_post <= TOL["post"] and pad_nonzero == 0
                 and chk["score_ok"] and chk["matches_equal"]
                 and topk_err <= TOL["topk"] and topk_lanes and topk_rest):
@@ -1622,6 +1727,7 @@ def main() -> None:
         t_cm = cuda_ms(lambda: wk.combine(fk, rk, LX, LY, models,
                                           with_matches=True, topk=16), 3)
         t_cd = cuda_ms(lambda: wk.combine(fk, rk, LX, LY, models), 3)
+        t_vit = cuda_ms(lambda: vk.viterbi_stats(X, Y, LX, LY, *tabs_v), 3)
         sw_b = bound(2 * lp_ + 16 + nm * (D_ * W_ + D_ + 1) * 4,
                      sum(SWEEP_OPS[m] for m in models) * D_ * W_)
         long_times[lp_] = {
@@ -1629,7 +1735,11 @@ def main() -> None:
             "combine_topk16_matches_ms": t_cm, "combine_dense_ms": t_cd,
             "combine_dense_bound_ms":
                 (2 * nm * (D_ * W_ + D_ + 1) * 4 + 8 + D_ * W_ * 4 + 4)
-                / CARD_BYTES * 1e3}
+                / CARD_BYTES * 1e3,
+            "viterbi_ms": t_vit,
+            "viterbi_bound_ms": bound(
+                2 * lp_ + 8 + vk.TAB_SIZE * 4 + D_ * W_ + 16 + 8 * lp_,
+                VITERBI_OPS_CELL * D_ * W_)[0]}
         del fk, rk
     print("[long] mix B=1 times: " + json.dumps(long_times), flush=True)
     # cli base on a family with one sequence past 8,192 residues
@@ -1648,7 +1758,7 @@ def main() -> None:
            "valid": valid_msa(lmsa, lfam),
            "content_hash": lmsa.content_hash(), "columns": lmsa.length}
     print("[long] " + json.dumps(rec, default=float), flush=True)
-    if not valid_msa(lmsa, lfam) or min(llaunch.values()) < 1:
+    if not valid_msa(lmsa, lfam) or unlaunched(llaunch, BASE_KERNELS):
         fail(f"the long family did not align on the card: {rec}")
 
     # ---- 13. [qp-scaled]: MLPROBS_QP_EXACT=0 -------------------------------
@@ -1695,12 +1805,18 @@ def main() -> None:
          "mlprobs_tpu/ops/pallas/wavefront_kernel.py:546"),
         ("combine", "mlprobs_tpu_torch/ops/kernels/csrc/combine.cu",
          "mlprobs_tpu/ops/pallas/wavefront_kernel.py:857"),
+        # not TPU kernels: the JAX package's XLA scans of the same function
+        ("viterbi", "mlprobs_tpu_torch/ops/kernels/csrc/viterbi.cu",
+         "mlprobs_tpu/ops/wavefront.py:578"),
+        ("qpx", "mlprobs_tpu_torch/ops/kernels/csrc/qpx.cu",
+         "mlprobs_tpu/ops/qpx.py:157"),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": plaunch[name],
             "launches_by_path": {"base": launches[name],
                                  "pipeline": plaunch[name],
+                                 "realigner": qrec["launches"][name],
                                  "np": nlaunch[name],
                                  "sector": slaunch[name],
                                  "sector_again": dlaunch[name],

@@ -13,8 +13,9 @@ Model selection per family identity class (pdoAlign, MSA.cpp:941-1010):
   pid >= 3 : partition function only
 
 Mode "qp" is the QuickProbs-role realigner's posterior: the qpx hmm5
-posterior (ops/qpx.py, the reference's f32 log-space arithmetic) and the
-sweep kernel's partition posterior on the Vtml200 tables, filtered to
+posterior (the qpx kernels, ops/kernels/qpx_kernel.py, replaying the
+reference's f32 log-space arithmetic of ops/qpx.py) and the sweep
+kernel's partition posterior on the Vtml200 tables, filtered to
 [0.001, 1], RMS-combined (PosteriorStage.cpp:123-196).  With
 MLPROBS_QP_EXACT=0, as in the JAX package, mode "qp" runs the two kernels
 on the hmm5 and Vtml200 partition models instead, with no filter.
@@ -53,8 +54,10 @@ import torch
 from mlprobs_tpu_torch.core.config import DEFAULT as _CFG
 from mlprobs_tpu_torch.core.config import engine_budgets
 from mlprobs_tpu_torch.models import params as mp
-from mlprobs_tpu_torch.ops import (mwt, pairhmm, partition, qpx, viterbi,
+from mlprobs_tpu_torch.ops import (mwt, pairhmm, partition, viterbi,
                                    wavefront)
+from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk
+from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk
 from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
 from mlprobs_tpu_torch.ops.viterbi import VIT_INIT
 from mlprobs_tpu_torch.parallel.mesh import (PairsMesh, gather, pairs_mesh,
@@ -302,12 +305,13 @@ def _qpx_params(device: torch.device) -> tuple:
 
 def _qpx_combined_skew(X, Y, LX, LY, tabs_f, tabs_r):
     """(D, B, W) RMS-combined qp posterior with reference numerics: the
-    qpx hmm5 posterior and the partition posterior of the two sweeps.
+    qpx hmm5 posterior (the qpx kernels' planes) and the partition
+    posterior of the two sweeps.
 
     The RMS runs in place on the partition plane, which keeps the batch's
     peak at the sweeps' two planes, the hmm5 posterior and the plain
     `posterior_skew`'s temporaries."""
-    ph = qpx.hmm5_posterior_qpx(X, Y, LX, LY, *_qpx_params(X.device))
+    ph = qk.hmm5_posterior(X, Y, LX, LY, *_qpx_params(X.device))
     fwd, rev = wk.sweeps(X, Y, LX, LY, tabs_f, tabs_r, ("partition",))
     pp = wavefront.posterior_skew(fwd, rev, "partition")
     del fwd, rev
@@ -634,6 +638,17 @@ def all_pairs_posteriors(
                 yield (i, j), csr, float(score[k])
 
 
+def viterbi_tables(blosum: np.ndarray, device) -> tuple:
+    """(local log tables {lmatch, lins, trans}, vinit, blosum) of the
+    feature pass, f32 tensors on `device`: the Viterbi kernel's inputs
+    (ops/kernels/viterbi_kernel.py) besides the pair batch."""
+    _, lo, _ = mp.log_tables("mix", None)
+    pl = {k: torch.as_tensor(np.asarray(lo[k], np.float32), device=device)
+          for k in ("lmatch", "lins", "trans")}
+    return (pl, torch.as_tensor(VIT_INIT, device=device),
+            torch.as_tensor(np.asarray(blosum, np.float32), device=device))
+
+
 def viterbi_stat_batches(
     seqs: Sequence[np.ndarray],
     pairs: Sequence[tuple[int, int]],
@@ -645,24 +660,16 @@ def viterbi_stat_batches(
 
     Yields (pair_chunk, path_len (nb,), matches (nb,),
     scores_rev (2*Lp, nb)); the (D, B, W) direction planes never leave the
-    device (they are consumed by wavefront.viterbi_path_stats).  With a
-    mesh, each device runs its share of a batch.
+    device: one launch of the Viterbi kernel a batch
+    (ops/kernels/viterbi_kernel.py) walks the paths where it wrote them.
+    With a mesh, each device runs its share of a batch.
     """
     device = devlib.resolve(device)
-    _, lo, _ = mp.log_tables("mix", None)
     mesh = _mesh(device)
-
-    @functools.cache
-    def tables(dev):
-        pl = {k: torch.as_tensor(np.asarray(lo[k], np.float32), device=dev)
-              for k in ("lmatch", "lins", "trans")}
-        return (pl, torch.as_tensor(VIT_INIT, device=dev),
-                torch.as_tensor(np.asarray(blosum, np.float32), device=dev))
+    tables = functools.cache(functools.partial(viterbi_tables, blosum))
 
     def body(x, y, lx, ly, pl, vinit, bl):
-        dirs_s, ends, _ = wavefront.viterbi_wavefront(x, y, lx, ly, pl,
-                                                      vinit)
-        return wavefront.viterbi_path_stats(dirs_s, ends, x, y, lx, ly, bl)
+        return vk.viterbi_stats(x, y, lx, ly, pl, vinit, bl)[3:]
 
     stats_fn = _shard_pairs(body, tables, mesh, (0, 0, 1))
     for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device,

@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build" / "kernels"
-KERNELS = ("sweep", "combine")
+KERNELS = ("sweep", "combine", "viterbi", "qpx")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -28,6 +28,26 @@ NVCC_FLAGS = (
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing, or a kernel failed to compile or load."""
+
+
+class KernelArgumentError(RuntimeError):
+    """A wrapper was given a tensor or an option its kernel does not take:
+    a fault of the program, never of the family being aligned."""
+
+
+def check_arg(name, t, dtype, shape, device) -> None:
+    """Raise KernelArgumentError unless `t` is a contiguous `dtype`
+    tensor of `shape` on `device`."""
+    if t.device != device:
+        raise KernelArgumentError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise KernelArgumentError(f"{name} has dtype {t.dtype}, "
+                                  f"expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise KernelArgumentError(f"{name} has shape {tuple(t.shape)}, "
+                                  f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise KernelArgumentError(f"{name} is not contiguous")
 
 
 def nvcc_path() -> str:
@@ -93,6 +113,10 @@ _ARGTYPES = {
               + [ctypes.c_void_p] * 4),
     "combine": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                 + [ctypes.c_float] + [ctypes.c_void_p] * 6),
+    "viterbi": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 8),
+    "qpx": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 6),
 }
 
 

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from mlprobs_tpu_torch.ops import wavefront as wf
-from mlprobs_tpu_torch.ops.kernels import build
+from mlprobs_tpu_torch.ops.kernels import build, qpx_kernel, viterbi_kernel
+from mlprobs_tpu_torch.ops.kernels.build import KernelArgumentError, check_arg
 
 MODEL_KIND = {"hmm5": 0, "local": 1, "partition": 2}
 # per-model packed table layout, in floats (csrc/sweep.cu TAB_*)
@@ -72,24 +73,6 @@ def pack_tables(tables, models, device) -> torch.Tensor:
     return rows
 
 
-class KernelArgumentError(RuntimeError):
-    """A wrapper was given a tensor or an option its kernel does not take:
-    a fault of the program, never of the family being aligned."""
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise KernelArgumentError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise KernelArgumentError(f"{name} has dtype {t.dtype}, "
-                                  f"expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise KernelArgumentError(f"{name} has shape {tuple(t.shape)}, "
-                                  f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise KernelArgumentError(f"{name} is not contiguous")
-
-
 def _kinds(models):
     if not 1 <= len(models) <= 3 or not set(models) <= set(MODEL_KIND):
         raise KernelArgumentError(f"1 to 3 models of {sorted(MODEL_KIND)}, "
@@ -113,10 +96,10 @@ def sweep(X, Y, ox, oy, lx, ly, tables, models=("hmm5",), emit_pre=False):
     B, Lp = X.shape
     D, W, nm = 2 * Lp + 1, Lp + 1, len(models)
     kinds = _kinds(models)
-    _check("X", X, torch.int8, (B, Lp), dev)
-    _check("Y", Y, torch.int8, (B, Lp), dev)
+    check_arg("X", X, torch.int8, (B, Lp), dev)
+    check_arg("Y", Y, torch.int8, (B, Lp), dev)
     for nme, t in (("ox", ox), ("oy", oy), ("lx", lx), ("ly", ly)):
-        _check(nme, t, torch.int32, (B,), dev)
+        check_arg(nme, t, torch.int32, (B,), dev)
     tabs = pack_tables(tables, models, dev)
     planes = torch.empty((nm, D, B, W), dtype=torch.float32, device=dev)
     scales = torch.empty((nm, D, B), dtype=torch.float32, device=dev)
@@ -172,13 +155,14 @@ def combine(fwd, rev, lx, ly, models=("hmm5",), with_matches=False,
     Lp = W - 1
     kinds = _kinds(models)
     for nme, t in (("fwd planes", fp), ("rev planes", rp)):
-        _check(nme, t, torch.float32, (len(models), 2 * Lp + 1, B, W), dev)
+        check_arg(nme, t, torch.float32, (len(models), 2 * Lp + 1, B, W),
+                  dev)
     for nme, t in (("fwd scales", fs), ("rev scales", rs)):
-        _check(nme, t, torch.float32, (nm, D, B), dev)
+        check_arg(nme, t, torch.float32, (nm, D, B), dev)
     for nme, t in (("fwd totals", fl), ("rev totals", rl)):
-        _check(nme, t, torch.float32, (nm, B), dev)
-    _check("lx", lx, torch.int32, (B,), dev)
-    _check("ly", ly, torch.int32, (B,), dev)
+        check_arg(nme, t, torch.float32, (nm, B), dev)
+    check_arg("lx", lx, torch.int32, (B,), dev)
+    check_arg("ly", ly, torch.int32, (B,), dev)
     if not 0 <= topk <= W:
         raise KernelArgumentError(f"topk {topk} outside [0, {W}]")
     score = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -236,5 +220,8 @@ def posterior(X, Y, LX, LY, tabs_f, tabs_r, models, with_matches=False,
 
 
 def reset_launch_counts() -> None:
+    """Set the launch counts of every kernel of the port to 0."""
     sweep.launches = 0
     combine.launches = 0
+    viterbi_kernel.viterbi_stats.launches = 0
+    qpx_kernel.hmm5_fb.launches = 0

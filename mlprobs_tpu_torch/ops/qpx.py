@@ -20,7 +20,9 @@ computeBackwardMatrix (ParallelProbabilisticModel.cpp:40-238),
 posterior (ibid:240-273), called from PosteriorStage::computePairwise
 (PosteriorStage.cpp:122-153).  The JAX package runs each direction as a
 `lax.scan`; here each is a Python loop over anti-diagonals whose cells
-get exactly the operations the scan gives them.  Only the loop's
+get exactly the operations the scan gives them.  That loop is the plain
+version of the qpx CUDA kernels (`ops/kernels/qpx_kernel.py`), which the
+realigner runs on the card and which equal it bit for bit.  Only the loop's
 bookkeeping differs: the four insert states are stacked and updated by
 one tensor op where the reference applies the same operation to each,
 a state is shifted by reading a view of a padded buffer, each piece of
@@ -144,11 +146,19 @@ def _setup(xp, yp, lmatch, lins):
     yg = torch.cat([pad[:, :1], yl], 1)                        # y_j, j=0..Lp
     ynext = torch.cat([yl, torch.full((B, 1), OFF, dtype=torch.long,
                                       device=dev)], 1)       # y_{j+1}
+    lm, li = class_tables(lmatch, lins)
+    return xfeed, xfeed * NCLS, yg, ynext, lm, li
+
+
+def class_tables(lmatch, lins):
+    """(lm (NCLS * NCLS,), li (2, NCLS)) f32: the match and insert log
+    tables with the 22nd, all-LOG_ZERO class."""
+    dev = lmatch.device
     lm = torch.full((NCLS, NCLS), LOG_ZERO, dtype=torch.float32, device=dev)
     lm[:21, :21] = lmatch
     li = torch.full((2, NCLS), LOG_ZERO, dtype=torch.float32, device=dev)
     li[:, :21] = lins.T
-    return xfeed, xfeed * NCLS, yg, ynext, lm.reshape(-1), li
+    return lm.reshape(-1), li
 
 
 def hmm5_fb_qpx(xp, yp, lx, ly, init, trans, lmatch, lins):
@@ -325,12 +335,19 @@ def hmm5_fb_qpx(xp, yp, lx, ly, init, trans, lmatch, lins):
 
 def hmm5_posterior_qpx(xp, yp, lx, ly, init, trans, lmatch, lins):
     """(D, B, W) match posterior with reference arithmetic:
-    p = EXP(min(0, f + b - total)), p[0, j] = p[i, 0] = 0, zero outside
-    each pair's (lx+1) x (ly+1) grid.  Written over the forward plane,
-    `_POST_CHUNK` diagonals at a time, so the pass holds no more than
-    the two planes."""
+    `posterior_from_fb` of `hmm5_fb_qpx`."""
     fwd_m, bwd_m, total = hmm5_fb_qpx(xp, yp, lx, ly, init, trans,
                                       lmatch, lins)
+    return posterior_from_fb(fwd_m, bwd_m, total, lx, ly)
+
+
+def posterior_from_fb(fwd_m, bwd_m, total, lx, ly):
+    """(D, B, W) match posterior from the forward/backward match planes
+    and totals: p = EXP(min(0, f + b - total)), p[0, j] = p[i, 0] = 0,
+    zero outside each pair's (lx+1) x (ly+1) grid.  Written over the
+    forward plane, `_POST_CHUNK` diagonals at a time, so the pass holds no
+    more than the two planes; the qpx kernels' planes
+    (ops/kernels/qpx_kernel.py) take the same pass."""
     D, B, W = fwd_m.shape
     dev = fwd_m.device
     tot = torch.where(total == 0.0, 1.0, total)[None, :, None]

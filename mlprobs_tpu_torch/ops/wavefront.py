@@ -16,10 +16,11 @@ contract and the same arithmetic, one tensor op at a time:
   bwd(i, j) = rev[2*Lp+2-d, Lp+1-j] is a static remap.
 
 Each `lax.scan` of the JAX version is a Python loop over diagonals here.
-This module is the plain version of the two CUDA kernels
-(`ops/kernels/wavefront_kernel.py`): the CPU path runs it, and the chip
-check holds the kernels against it on the card.  The Viterbi wavefront of
-the feature pass has no kernel and stays plain tensor code.
+This module is the plain version of the CUDA kernels: `sweep` and
+`combine` (`ops/kernels/wavefront_kernel.py`), and the feature pass's
+Viterbi, `viterbi_wavefront` with `viterbi_path_stats`
+(`ops/kernels/viterbi_kernel.py`).  The CPU path runs it, and the chip
+check holds the kernels against it on the card.
 """
 from __future__ import annotations
 

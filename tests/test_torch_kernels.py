@@ -7,7 +7,8 @@ Tolerances as in tests/test_torch_wavefront.py: sweep planes 1e-5
 relative to each row's max after aligning both to one scale, log2 totals
 2e-4, posteriors 2e-4, MWT score rtol 1e-4 / atol 1e-3, match counts
 exact, top-k values 1e-7 with lanes equal wherever the value is
-positive.
+positive.  The Viterbi and qpx kernels: bit equality over every returned
+tensor.
 """
 import numpy as np
 import pytest
@@ -329,3 +330,167 @@ def test_qp_scaled_tables_on_card(cuda_device, lp):
     fp, rp = _sweeps(twk.sweep_reference, X, Y, lx, ly, tf, tr, models)
     _sweeps_vs_plain(fk, rk, fp, rp, models)
     _combine_vs_plain(fk, rk, lx, ly, models)
+
+
+# ---------------------------------------------------------------------------
+# The feature pass's Viterbi kernel and the qpx forward/backward kernels
+# (csrc/viterbi.cu, csrc/qpx.cu): both replay their plain versions' f32
+# arithmetic op for op, so every returned tensor is held bit for bit.
+# ---------------------------------------------------------------------------
+
+from mlprobs_tpu_torch.ops import qpx as tqpx  # noqa: E402
+from mlprobs_tpu_torch.ops.kernels import build as tbuild  # noqa: E402
+from mlprobs_tpu_torch.ops.kernels import qpx_kernel as tqk  # noqa: E402
+from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as tvk  # noqa: E402
+
+VIT_OUT = ("dirs", "end_state", "score", "pathlen", "matches", "scores_rev")
+QPX_OUT = ("fwd_m", "bwd_m", "total")
+
+
+def _viterbi_tables(device):
+    return tpw.viterbi_tables(tpw.mp.blosum62(), device)
+
+
+def _assert_bit_equal(names, got, want):
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("lp,b", [(1, 3), (33, 3), (128, 8)])
+def test_feature_wrappers_run_the_plain_versions_on_cpu(lp, b):
+    """On CPU tensors the Viterbi and qpx wrappers are their plain
+    versions, exactly, and launch nothing."""
+    X, Y, lx, ly = _edge_batch("cpu", lp, b, seed=lp * 3 + b)
+    twk.reset_launch_counts()
+    tabs = _viterbi_tables("cpu")
+    _assert_bit_equal(VIT_OUT, tvk.viterbi_stats(X, Y, lx, ly, *tabs),
+                      tvk.viterbi_reference(X, Y, lx, ly, *tabs))
+    p5 = tpw._qpx_params(torch.device("cpu"))
+    _assert_bit_equal(QPX_OUT, tqk.hmm5_fb(X, Y, lx, ly, *p5),
+                      tqpx.hmm5_fb_qpx(X, Y, lx, ly, *p5))
+    assert torch.equal(tqk.hmm5_posterior(X, Y, lx, ly, *p5),
+                       tqpx.hmm5_posterior_qpx(X, Y, lx, ly, *p5))
+    assert (tvk.viterbi_stats.launches, tqk.hmm5_fb.launches) == (0, 0)
+
+
+def test_feature_table_blocks_layout():
+    """The packed table blocks put each parameter where csrc/viterbi.cu
+    and csrc/qpx.cu read it."""
+    pl, vinit, bl = _viterbi_tables("cpu")
+    tab = tvk.pack_tables(pl, vinit, bl, "cpu")
+    assert tab.shape == (tvk.TAB_SIZE,)
+    lm = tab[:441].reshape(21, 21)
+    assert torch.equal(lm[:20, :20], pl["lmatch"][:20, :20])
+    assert bool((lm[20] == twf.LOG_ZERO).all())
+    assert bool((lm[:, 20] == twf.LOG_ZERO).all())
+    assert torch.equal(tab[441:461], pl["lins"][:20])
+    assert tab[461] == twf.LOG_ZERO
+    assert torch.equal(tab[462:471], pl["trans"].reshape(-1))
+    assert torch.equal(tab[471:474], vinit)
+    assert torch.equal(tab[474:], bl.reshape(-1))
+    p5 = tpw._qpx_params(torch.device("cpu"))
+    init, trans, lmatch, lins = p5
+    q = tqk.pack_tables(*p5)
+    assert q.shape == (tqk.TAB_SIZE,)
+    lm22 = q[:484].reshape(22, 22)
+    assert torch.equal(lm22[:21, :21], lmatch)
+    assert bool((lm22[21] == tqpx.LOG_ZERO).all())
+    assert torch.equal(q[484:528].reshape(2, 22)[:, :21], lins.T)
+    assert torch.equal(q[528:553], trans.reshape(-1))
+    assert torch.equal(q[553:558], init)
+    assert torch.equal(q[558:561], torch.tensor([1.0, 2.5, 4.5]))
+    assert torch.equal(q[561:577], tqpx._consts(torch.device("cpu"))["lc"]
+                       .reshape(-1))
+
+
+def _bad_feature_args(case, which):
+    """Arguments on the meta device, one of them wrong as `case` says."""
+    meta = torch.device("meta")
+    b, lp = 3, 16
+    X = torch.empty((b, lp), dtype=torch.int8, device=meta)
+    Y = torch.empty((b, lp), dtype=torch.int8, device=meta)
+    lx = torch.empty((b,), dtype=torch.int32, device=meta)
+    ly = torch.empty((b,), dtype=torch.int32, device=meta)
+    if which == "viterbi":
+        pl, vinit, bl = _viterbi_tables(meta)
+        tabs = [pl, vinit, bl]
+    else:
+        tabs = [t.to(meta) for t in tpw._qpx_params(torch.device("cpu"))]
+    if case == "dtype":
+        X = X.to(torch.int32)
+    elif case == "noncontiguous":
+        Y = torch.empty((b, 2 * lp), dtype=torch.int8, device=meta)[:, ::2]
+    elif case == "table_device":
+        k = 1 if which == "viterbi" else 2
+        tabs[k] = torch.zeros(tabs[k].shape, dtype=tabs[k].dtype)
+    elif case == "batch":
+        ly = torch.empty((b + 1,), dtype=torch.int32, device=meta)
+    return (X, Y, lx, ly, *tabs)
+
+
+@pytest.mark.parametrize("case", ["dtype", "noncontiguous", "table_device",
+                                  "batch"])
+@pytest.mark.parametrize("which", ["viterbi", "qpx"])
+def test_feature_wrappers_reject_bad_arguments(monkeypatch, which, case):
+    """A tensor the kernel does not take raises KernelArgumentError before
+    any launch: a wrong dtype, a non-contiguous tensor, a table on
+    another device, a length vector of another batch size."""
+    monkeypatch.setattr(tbuild, "lib", lambda name: None)
+    fn = tvk.viterbi_stats if which == "viterbi" else tqk.hmm5_fb
+    before = (tvk.viterbi_stats.launches, tqk.hmm5_fb.launches)
+    with pytest.raises(tbuild.KernelArgumentError):
+        fn(*_bad_feature_args(case, which))
+    assert (tvk.viterbi_stats.launches, tqk.hmm5_fb.launches) == before
+
+
+def _vit_lengths():
+    # lane edges of csrc/viterbi.cu: one warp (W <= 64), a warp's last
+    # and next lane, the main shape, 1,024 threads of 2 lanes (W = 2,048)
+    # and past them, the ring leaving shared memory (W = 4,097), and the
+    # long family's Lp
+    return [(1, 3), (2, 3), (63, 4), (64, 4), (65, 4), (128, 8),
+            (512, 256), (1023, 2), (2047, 1), (2048, 1), (4095, 1),
+            (4096, 1), (8320, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp,b", _vit_lengths())
+def test_viterbi_kernel_bit_equal_on_card(cuda_device, lp, b):
+    """The Viterbi kernel against viterbi_wavefront + viterbi_path_stats
+    on the same card inputs, ragged lengths (x of full length in the
+    first pair, y in the last): every returned tensor equal bit for bit,
+    and one launch counted."""
+    X, Y, lx, ly = _edge_batch(cuda_device, lp, b, seed=lp * 17 + b)
+    tabs = _viterbi_tables(cuda_device)
+    n = tvk.viterbi_stats.launches
+    got = tvk.viterbi_stats(X, Y, lx, ly, *tabs)
+    assert tvk.viterbi_stats.launches == n + 1
+    _assert_bit_equal(VIT_OUT, got,
+                      tvk.viterbi_reference(X, Y, lx, ly, *tabs))
+
+
+def _qpx_lengths():
+    # lane edges of csrc/qpx.cu: as _vit_lengths, the ring leaving shared
+    # memory past 2,048 lanes; the plain version's loop bounds the
+    # longest (Lp = 4,100: ~30 s of plain torch on the card)
+    return [(1, 3), (2, 3), (63, 4), (64, 4), (65, 4), (128, 8),
+            (512, 256), (1023, 2), (2047, 1), (2048, 1), (4100, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp,b", _qpx_lengths())
+def test_qpx_kernel_bit_equal_on_card(cuda_device, lp, b):
+    """The qpx kernels against hmm5_fb_qpx on the same card inputs,
+    ragged lengths: fwd_m, bwd_m and the totals equal bit for bit, and
+    the posterior of hmm5_posterior_qpx as well."""
+    X, Y, lx, ly = _edge_batch(cuda_device, lp, b, seed=lp * 19 + b)
+    p5 = tpw._qpx_params(cuda_device)
+    n = tqk.hmm5_fb.launches
+    got = tqk.hmm5_fb(X, Y, lx, ly, *p5)
+    assert tqk.hmm5_fb.launches == n + 1
+    want = tqpx.hmm5_fb_qpx(X, Y, lx, ly, *p5)
+    _assert_bit_equal(QPX_OUT, got, want)
+    post = tqpx.posterior_from_fb(*got, lx, ly)
+    del got, want
+    assert torch.equal(post, tqpx.hmm5_posterior_qpx(X, Y, lx, ly, *p5))

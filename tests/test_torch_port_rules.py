@@ -314,3 +314,69 @@ def test_wrappers_raise_instead_of_falling_back(no_kernel_library):
     with pytest.raises(build.KernelBuildError):
         wk.posterior(X, X, L, L, tabs_f, tabs_f, models=("hmm5",))
     assert (wk.sweep.launches, wk.combine.launches) == launches
+
+
+@pytest.mark.parametrize("stage", ["viterbi_stat_batches",
+                                   "qpx_combined_skew"])
+def test_feature_and_qpx_stages_go_through_the_wrappers(monkeypatch, stage):
+    """The feature pass and the realigner's qp posterior call the kernel
+    wrappers (which run their plain versions only on the CPU): a counter
+    put in place of each wrapper sees every batch."""
+    from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk
+    from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk
+
+    calls = []
+    mod, name = ((vk, "viterbi_stats") if stage == "viterbi_stat_batches"
+                 else (qk, "hmm5_fb"))
+    real = getattr(mod, name)
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(mod, name, counted)
+    recs = synthetic_family(5, 20, 40, 0.3, 0.1, 3)
+    seqs = [np.frombuffer(s.encode(), np.uint8) % 20 for _, s in recs]
+    seqs = [s.astype(np.int8) for s in seqs]
+    if stage == "viterbi_stat_batches":
+        pairs = [(i, j) for i in range(5) for j in range(i + 1, 5)]
+        batches = list(pairwise.viterbi_stat_batches(
+            seqs, pairs, np.eye(21, dtype=np.float32), device="cpu"))
+        assert len(calls) == len(batches) >= 1
+        assert sum(len(b[0]) for b in batches) == len(pairs)
+    else:
+        X = torch.from_numpy(np.stack([np.pad(s[:20], (0, 12),
+                                              constant_values=20)
+                                       for s in seqs[:3]]))
+        L = torch.full((3,), 20, dtype=torch.int32)
+        tf, tr = pairwise._wf_tables("qp", None, "cpu")
+        post = pairwise._qpx_combined_skew(X, X.flip(0).contiguous(), L, L,
+                                           tf, tr)
+        assert post.shape == (65, 3, 33)
+        assert calls == [(3, 32)]
+
+
+def test_feature_wrappers_raise_instead_of_falling_back(no_kernel_library,
+                                                        monkeypatch):
+    """The Viterbi and qpx wrappers: a tensor that is not on the CPU goes
+    to the kernel or raises, and the plain version never runs."""
+    from mlprobs_tpu_torch.ops import qpx
+    from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk
+    from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk
+
+    def plain_must_not_run(*a, **kw):
+        raise AssertionError("a wrapper fell back to its plain version")
+
+    monkeypatch.setattr(vk, "viterbi_reference", plain_must_not_run)
+    monkeypatch.setattr(qpx, "hmm5_fb_qpx", plain_must_not_run)
+    meta = torch.device("meta")
+    X = torch.empty((2, 64), dtype=torch.int8, device=meta)
+    L = torch.empty((2,), dtype=torch.int32, device=meta)
+    launches = (vk.viterbi_stats.launches, qk.hmm5_fb.launches)
+    with pytest.raises(build.KernelBuildError):
+        vk.viterbi_stats(X, X, L, L, {}, None, None)
+    with pytest.raises(build.KernelBuildError):
+        qk.hmm5_fb(X, X, L, L, None, None, None, None)
+    with pytest.raises(build.KernelBuildError):
+        qk.hmm5_posterior(X, X, L, L, None, None, None, None)
+    assert (vk.viterbi_stats.launches, qk.hmm5_fb.launches) == launches
