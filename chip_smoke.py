@@ -29,17 +29,22 @@ sets its meshes itself.  Phases (any failure exits non-zero):
     share), and the consistency tensor rebuilt with the plain versions
     on the card must agree with the kernels' tensor;
  5. [qp]: the realigner's qp posterior (`_qpx_combined_skew`: the qpx
-    kernels' hmm5 posterior, the partition half through the sweep
+    kernel's hmm5 posterior, the partition half through the sweep
     kernel) on the card against the CPU plain version at Lp=128/B=8
     (hmm5 half bit-equal, the whole atol 2e-4); then at the smoke
     family's qp shape (Lp=512, its batch size) the times of the qpx
-    kernels and of their plain version, of the two partition sweeps and
+    kernel and of its plain version, of the two partition sweeps and
     of the whole qp batch, its peak bytes against the batch budget of 80
-    bytes per (pair, cell), and one profiler window around the kernels'
-    pass;
+    bytes per (pair, cell), and one profiler window around the kernel;
+    then the qp route's MWT and top-k on that plane (`mwt_topk`,
+    combine's GIVEN kind; top-k 16, with match counts, dense) against
+    the plain `topk_skew` + `mwt_skew`, equal bit for bit (lanes where
+    the value is positive), with both times and the kernel's bound;
  6. [pipeline]: `run_pipeline` (the `cli align` path) on the smoke family
-    on the card: decisions, stage marks, launches, hash, peak bytes; no
-    crash fallback, no block error, rows degap to the inputs;
+    on the card: decisions, stage marks, launches (and the realigner's
+    own), hash, peak bytes; no crash fallback, no block error, rows
+    degap to the inputs; `mwt_topk` once per qp batch (as many calls as
+    qpx launches);
  7. [realigner]: `align_family(config="quickprobs")` on the smoke family
     on the card (per-stage seconds, engines, hash, peak bytes), unless
     phase 6 already took the whole-family realign, whose numbers it then
@@ -110,7 +115,15 @@ sets its meshes itself.  Phases (any failure exits non-zero):
 Each path is driven with the launch counts of the four kernels set to 0
 just before it and read just after (a subprocess reports its own); a
 path that did not launch every kernel it runs fails: the feature pass
-runs the Viterbi kernel, a qp batch the qpx kernels.
+runs the Viterbi kernel, a qp batch the qpx kernel and combine.  No path
+may call the plain `mwt_skew` or `topk_skew` on a card tensor: each
+path counts those calls (a subprocess too) and fails on any.  Every
+path's MSA keeps its recorded hash (EXPECTED_HASHES), [pipeline-cpu] the
+same hash on the card and the CPU: a change fails the run at its end.
+[timing] prints the qpx kernel's time beside QPX_PARENT_MS, the time
+PERF.md records for the kernel before its redesign (a recorded constant,
+not measured in the run); `ops/kernels/time_ab.py` times two checkouts
+in one call.
 Before the last line come the kernels' JSON record and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.
 """
@@ -141,10 +154,22 @@ COMBINE_OPS_PER_MODEL, COMBINE_OPS_CELL = 6, 8
 VITERBI_OPS_CELL = 14
 QPX_OPS_CELL = 2 * 98
 KERNELS = ("sweep", "combine", "viterbi", "qpx")
+# combine's GIVEN kind (the qp route's MWT and top-k): the MWT step's
+# add and three compares a cell
+GIVEN_OPS_CELL = 4
+# the qpx kernel before its redesign (two launches, forward then
+# backward) at the main shape, as PERF.md records it ([timing], NVIDIA
+# H100 80GB HBM3, 700.00 W): a recorded constant, printed as such
+QPX_PARENT_MS = 6.381
+# every path's MSA as PERF.md records it: a change of the kernels'
+# arithmetic that reaches an alignment shows here
+EXPECTED_HASHES = {"main": "fd5a49930ffd7ec7", "pipeline": "8bdc5361a51c4197",
+                   "np": "d49567685c2f8c21", "sector": "411a28b6fc0ff0cb",
+                   "qp_scaled": "feeec500eb94c85c"}
 # the kernels each path runs: the pnp base (feature pass, posteriors),
-# the realigner (qpx hmm5 half, partition sweeps), both
+# the realigner (qpx hmm5 half, partition sweeps, MWT and top-k), both
 BASE_KERNELS = ("sweep", "combine", "viterbi")
-REALIGN_KERNELS = ("sweep", "qpx")
+REALIGN_KERNELS = ("sweep", "combine", "qpx")
 TOL = {
     "plane": 1e-5,      # sweep planes on one scale, relative to the row max
     "l2t": 2e-4,        # log2 totals: 2e-4 in log2 ~ 1.4e-4 relative
@@ -244,20 +269,19 @@ ROOT = Path(__file__).resolve().parent
 SECTOR_HASHES_BEFORE = ("57501cc5c61c46df", "e4bfdc9515cd074b",
                         "4998f5afa2dd21ba")
 # `python -m mlprobs_tpu_torch.pipeline.cli ...` that also reports the
-# kernels' launches of its process on its last line
+# kernels' launches of its process, and its calls of the plain MWT and
+# top-k on a card tensor (PlainTailCalls), on its last line
 CLI_WITH_LAUNCHES = (
-    "import json, runpy, sys\n"
-    "from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk\n"
-    "from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk\n"
-    "from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk\n"
-    "try:\n"
-    "    runpy.run_module('mlprobs_tpu_torch.pipeline.cli',\n"
-    "                     run_name='__main__', alter_sys=True)\n"
-    "finally:\n"
-    "    print('LAUNCHES ' + json.dumps({'sweep': wk.sweep.launches,\n"
-    "          'combine': wk.combine.launches,\n"
-    "          'viterbi': vk.viterbi_stats.launches,\n"
-    "          'qpx': qk.hmm5_fb.launches}), flush=True)\n"
+    "import json, runpy\n"
+    "from chip_smoke import PlainTailCalls, launch_counts\n"
+    "with PlainTailCalls() as plain:\n"
+    "    try:\n"
+    "        runpy.run_module('mlprobs_tpu_torch.pipeline.cli',\n"
+    "                         run_name='__main__', alter_sys=True)\n"
+    "    finally:\n"
+    "        print('LAUNCHES ' + json.dumps(\n"
+    "            {**launch_counts(), 'plain_tail_on_card': plain}),\n"
+    "            flush=True)\n"
 )
 
 
@@ -275,6 +299,34 @@ def launch_counts() -> dict:
 def unlaunched(launched: dict, names) -> list:
     """The kernels of `names` that `launched` counts no launch of."""
     return [n for n in names if launched.get(n, 0) < 1]
+
+
+class PlainTailCalls:
+    """While active, counts the calls of the plain `mwt_skew` and
+    `topk_skew` (ops/wavefront.py) on a card tensor: no path may make one,
+    since the qp route's MWT and top-k run on the combine kernel."""
+
+    NAMES = ("mwt_skew", "topk_skew")
+
+    def __enter__(self):
+        from mlprobs_tpu_torch.ops import wavefront
+
+        self.mod, self.seen = wavefront, dict.fromkeys(self.NAMES, 0)
+        self.real = {n: getattr(wavefront, n) for n in self.NAMES}
+        for n, real in self.real.items():
+            setattr(wavefront, n, self._counted(n, real))
+        return self.seen
+
+    def _counted(self, name, real):
+        def fn(p, *a, **kw):
+            self.seen[name] += p.device.type == "cuda"
+            return real(p, *a, **kw)
+        return fn
+
+    def __exit__(self, *exc):
+        for n, real in self.real.items():
+            setattr(self.mod, n, real)
+        return False
 # host.profile_posterior of one process at its OpenMP thread count,
 # three calls on the same input (an .npz written by scatter_input)
 SCATTER_RUN = (
@@ -304,6 +356,10 @@ def run_cli(args, dev_args=(), timeout=900):
         fail(f"cli {' '.join(args[:1])} exited {out.returncode}: "
              f"{out.stderr[-2000:]}")
     launches = json.loads(lines[-1].split(" ", 1)[1])
+    plain = launches.pop("plain_tail_on_card")
+    if any(plain.values()):
+        fail(f"cli {' '.join(args[:1])} ran the plain MWT or top-k on the "
+             f"card: {plain}")
     return lines[:-1], launches, wall
 
 
@@ -612,7 +668,7 @@ def phase_qp_scaled(dev, batch, cuda_ms, records, default_hash, small,
     if not srec["hashes_equal"] or not valid_msa(smsa, small) \
             or srep.crash_fallback or srep.block_errors:
         fail(f"the scaled qp route differs on the card and the CPU: {srec}")
-    return launched, times
+    return launched, times, rep.final_hash
 
 
 def phase_scan(dev, seqs, leave, wk_posterior_dense):
@@ -1010,6 +1066,11 @@ def main() -> None:
     work.mkdir()
     deferred: list = []   # failures recorded so that later phases still run
 
+    def check_hash(name, got):
+        if got != EXPECTED_HASHES[name]:
+            deferred.append(f"[{name}] hash {got}, expected "
+                            f"{EXPECTED_HASHES[name]}")
+
     def clock(phase):
         print(f"[clock] {phase} starts at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1042,9 +1103,12 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         wk.reset_launch_counts()
         t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
+        with PlainTailCalls() as plain:
+            out = fn()
+            torch.cuda.synchronize()
         wall_ = time.perf_counter() - t0
+        if any(plain.values()):
+            fail(f"a path ran the plain MWT or top-k on the card: {plain}")
         launched = launch_counts()
         timers = {k[5:]: v for k, v in STATS.to_dict().items()
                   if k.startswith("time.")}
@@ -1284,6 +1348,7 @@ def main() -> None:
     rec = {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0]}
            for k, v in timing.items()}
     rec["sweep_single_ms"] = single
+    rec["qpx"]["parent_recorded_ms"] = QPX_PARENT_MS   # not measured here
     print(f"[timing] mix Lp={lp} B={b} (combine_b104: B={b_last}): "
           + json.dumps(rec), flush=True)
     del fk, rk, fk2, rk2, comb_modes, f_, r_, X2, Y2, LX2, LY2
@@ -1296,10 +1361,14 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     wk.reset_launch_counts()
     t0 = time.perf_counter()
-    msa = aligner.align_family(records, config="pnp", strategy=0,
-                               report=report, device="cuda")
-    torch.cuda.synchronize()
+    with PlainTailCalls() as plain:
+        msa = aligner.align_family(records, config="pnp", strategy=0,
+                                   report=report, device="cuda")
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if any(plain.values()):
+        fail(f"the main path ran the plain MWT or top-k on the card: "
+             f"{plain}")
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     stages = {k[5:]: v for k, v in STATS.to_dict().items()
@@ -1312,6 +1381,7 @@ def main() -> None:
     }), flush=True)
     if unlaunched(launches, BASE_KERNELS):
         fail(f"the main path did not run every kernel: {launches}")
+    check_hash("main", msa.content_hash())
     if report.get("consistency_engine") != "device" \
             or "consistency_downgrade" in report:
         fail(f"consistency left the device: {report}")
@@ -1399,14 +1469,60 @@ def main() -> None:
     if per_cell > 80:
         fail(f"a qp batch outgrows the batch budget: {qp_rec}")
     _, prof = profiled(lambda: qk.hmm5_fb(X, Y, LX, LY, *p5))
-    print(f"[qp] profile of the qpx kernels' forward+backward (Lp={lp}, "
+    print(f"[qp] profile of the qpx kernel's forward+backward (Lp={lp}, "
           f"B={bq}): " + json.dumps(prof), flush=True)
-    del X, Y, LX, LY
+    # the qp route's MWT and top-k on its plane: combine's GIVEN kind
+    # against the plain tail, in each mode the route runs
+    post = pairwise._qpx_combined_skew(X, Y, LX, LY, qtf, qtr)
+    Dq, Wq = 2 * lp + 1, lp + 1
+    given = {}
+    for name, kw in (("topk16", {"topk": 16}),
+                     ("topk16_matches", {"topk": 16, "with_matches": True}),
+                     ("dense", {})):
+        got = wk.mwt_topk(post, LX, LY, cutoff=0.01, **kw)
+        want = wk.mwt_topk_reference(post, LX, LY, cutoff=0.01, **kw)
+        k = kw.get("topk", 0)
+        equal = all(torch.equal(a, b) for a, b in zip(got[2 * bool(k):],
+                                                      want[2 * bool(k):]))
+        if k:
+            pos = want[0] > 0
+            equal = (equal and torch.equal(got[0], want[0])
+                     and torch.equal(got[1][pos], want[1][pos]))
+        nbytes = (Dq * bq * Wq * 4 + 8 * bq + Dq * bq * k * 8
+                  + 4 * bq * (1 + bool(kw.get("with_matches"))))
+        given[name] = {
+            "equal": bool(equal),
+            "ms": cuda_ms(lambda kw=kw: wk.mwt_topk(post, LX, LY, **kw), 7),
+            "plain_ms": cuda_ms(lambda kw=kw: wk.mwt_topk_reference(
+                post, LX, LY, **kw), 1, warm=False),
+            "bound_ms": bound(nbytes, GIVEN_OPS_CELL * Dq * Wq * bq)[0]}
+    print(f"[qp] MWT and top-k on combine's GIVEN kind (Lp={lp}, B={bq}): "
+          + json.dumps(given), flush=True)
+    if not all(v["equal"] for v in given.values()):
+        fail(f"combine's GIVEN kind differs from the plain tail: {given}")
+    del X, Y, LX, LY, post
 
     # ---- 6. [pipeline]: cli align's path on the smoke family -------------
     clock("pipeline")
-    (pmsa, prep), pwall, plaunch, ppeak, ptimers = drive(
-        lambda: run_pipeline(records, device="cuda"))
+    # the realigner's launches (a snapshot around it): combine's GIVEN
+    # kind once per qp batch, as many as the qpx kernel's launches
+    qp_real = aligner._align_quickprobs
+    realigner_launches = dict.fromkeys(KERNELS, 0)
+
+    def realigner_counted(*a, **kw):
+        before = launch_counts()
+        try:
+            return qp_real(*a, **kw)
+        finally:
+            for n, v in launch_counts().items():
+                realigner_launches[n] += v - before[n]
+
+    aligner._align_quickprobs = realigner_counted
+    try:
+        (pmsa, prep), pwall, plaunch, ppeak, ptimers = drive(
+            lambda: run_pipeline(records, device="cuda"))
+    finally:
+        aligner._align_quickprobs = qp_real
     decisions = {k: getattr(prep, k) for k in (
         "strategy", "realign_mode", "min_length_class", "num_realign_blocks",
         "blocks_realigned", "blocks_accepted", "whole_family_realign",
@@ -1416,6 +1532,7 @@ def main() -> None:
         "wall_s": pwall, "decisions": decisions, "marks_s": prep.timings,
         "factor": prep.factor, "avg_pid": prep.avg_pid,
         "stage_timers_s": ptimers, "launches": plaunch,
+        "realigner_launches": realigner_launches,
         "peak_device_bytes": ppeak, "engines": prep.engines,
         "final_hash": prep.final_hash, "columns": pmsa.length,
         "block_errors": prep.block_errors, "error": prep.error,
@@ -1427,6 +1544,11 @@ def main() -> None:
         fail("the pipeline's MSA does not degap to its input records")
     if unlaunched(plaunch, KERNELS):
         fail(f"the pipeline did not run every kernel: {plaunch}")
+    if not 0 < realigner_launches["combine"] == plaunch["qpx"]:
+        fail(f"the qp batches did not each run combine once: "
+             f"{plaunch['qpx']} qpx launches, realigner "
+             f"{realigner_launches}")
+    check_hash("pipeline", prep.final_hash)
 
     # ---- 7. [realigner]: align_family(config="quickprobs") ---------------
     if prep.whole_family_realign:
@@ -1434,7 +1556,7 @@ def main() -> None:
         qrec = {"source": "phase [pipeline]: whole-family realign",
                 "stages_s": qstages, "engines": prep.engines,
                 "content_hash": prep.final_hash,
-                "peak_device_bytes": ppeak, "launches": plaunch}
+                "peak_device_bytes": ppeak, "launches": realigner_launches}
         qengine = prep.engines.get("consistency_engine")
     else:
         qreport: dict = {}
@@ -1492,6 +1614,9 @@ def main() -> None:
         if dec_c != dec_h:
             fail(f"decisions differ between the card and the CPU: "
                  f"{dec_c} vs {dec_h}")
+        if crep.final_hash != hrep.final_hash:
+            deferred.append(f"[pipeline-cpu] {case}: card hash "
+                            f"{crep.final_hash}, CPU {hrep.final_hash}")
         if crep.crash_fallback or crep.block_errors:
             fail(f"the small family fell back or lost a block: "
                  f"{crep.error} {crep.block_errors}")
@@ -1513,6 +1638,9 @@ def main() -> None:
     }), flush=True)
     if not valid_msa(tmsa, pair) or unlaunched(tlaunch, REALIGN_KERNELS):
         fail(f"the two-sequence realign failed on the card: {tlaunch}")
+    if tmsa.content_hash() != tcpu.content_hash():
+        deferred.append(f"[pipeline-cpu] two-sequence realign: card hash "
+                        f"{tmsa.content_hash()}, CPU {tcpu.content_hash()}")
 
     # ---- 9. [np]: the non-progressive base aligner ------------------------
     clock("np")
@@ -1531,6 +1659,7 @@ def main() -> None:
     }, default=float), flush=True)
     if not valid_msa(nmsa, records):
         fail("the NP base MSA does not degap to its input records")
+    check_hash("np", nmsa.content_hash())
     if unlaunched(nlaunch, BASE_KERNELS):
         fail(f"the NP path did not run every kernel: {nlaunch}")
     np_family = synthetic_family(16, 12, 24, sub=0.5, indel=0.1, seed=2)
@@ -1605,6 +1734,7 @@ def main() -> None:
         fail(f"the sector step outgrew its predicted peak: {rec}")
     if not valid_msa(smsa, big) or unlaunched(slaunch, BASE_KERNELS):
         fail(f"the sector family's MSA or launches are wrong: {rec}")
+    check_hash("sector", smsa.content_hash())
     # several blocks on the card against the same call on the CPU
     sub_seqs = [degap(encode(q)) for _, q in big[:8]]
     sposts, _ = aligner.posterior_stage(sub_seqs, "mix", 0.17, dev)
@@ -1763,9 +1893,10 @@ def main() -> None:
 
     # ---- 13. [qp-scaled]: MLPROBS_QP_EXACT=0 -------------------------------
     clock("qp-scaled")
-    qlaunch_scaled, _ = phase_qp_scaled(
+    qlaunch_scaled, _, scaled_hash = phase_qp_scaled(
         dev, batch, cuda_ms, records, prep.final_hash, small, drive,
         valid_msa, TOL)
+    check_hash("qp_scaled", scaled_hash)
 
     # ---- 14. [scan]: the row-scan posteriors against combine ---------------
     clock("scan")
@@ -1829,6 +1960,8 @@ def main() -> None:
             "plain_ms": timing[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,
         })
+        if name == "combine":   # the qp route's MWT and top-k ([qp])
+            kernels[-1]["given_kind"] = given
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,9 +16,11 @@ Mode "qp" is the QuickProbs-role realigner's posterior: the qpx hmm5
 posterior (the qpx kernels, ops/kernels/qpx_kernel.py, replaying the
 reference's f32 log-space arithmetic of ops/qpx.py) and the sweep
 kernel's partition posterior on the Vtml200 tables, filtered to
-[0.001, 1], RMS-combined (PosteriorStage.cpp:123-196).  With
-MLPROBS_QP_EXACT=0, as in the JAX package, mode "qp" runs the two kernels
-on the hmm5 and Vtml200 partition models instead, with no filter.
+[0.001, 1], RMS-combined (PosteriorStage.cpp:123-196); its MWT and
+top-k run on the combine kernel over that plane
+(`wavefront_kernel.mwt_topk`).  With MLPROBS_QP_EXACT=0, as in the JAX
+package, mode "qp" runs the two kernels on the hmm5 and Vtml200
+partition models instead, with no filter.
 
 MLPROBS_POSTERIOR_ENGINE selects the engine of the posteriors:
   "pallas" (the default) — the CUDA kernels, or their plain versions on
@@ -371,9 +373,8 @@ def _qp_exact_fn(with_matches: bool, tables,
 
     def run(X, Y, LX, LY, tabs_f, tabs_r):
         post = _qpx_combined_skew(X, Y, LX, LY, tabs_f, tabs_r)
-        vals, lanes = wavefront.topk_skew(post, TOPK, CUTOFF)
-        mw = wavefront.mwt_skew(post, LX, LY, with_matches=with_matches)
-        return (vals, lanes) + (mw if with_matches else (mw,))
+        return wk.mwt_topk(post, LX, LY, with_matches=with_matches,
+                           topk=TOPK, cutoff=CUTOFF)
 
     return _shard_pairs(run, tables, mesh, (1, 1, 0, 0) if with_matches
                         else (1, 1, 0))
@@ -384,7 +385,7 @@ def _qp_exact_dense_fn(tables, mesh: PairsMesh | None = None):
 
     def run(X, Y, LX, LY, tabs_f, tabs_r):
         post = _qpx_combined_skew(X, Y, LX, LY, tabs_f, tabs_r)
-        score = wavefront.mwt_skew(post, LX, LY, with_matches=False)
+        score, = wk.mwt_topk(post, LX, LY)
         dense = wavefront.unskew_posterior(post)
         return torch.where(dense >= CUTOFF, dense, 0.0), score
 

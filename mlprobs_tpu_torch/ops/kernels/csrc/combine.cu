@@ -88,6 +88,16 @@
 // the ring row in k rounds of a warp-wide arg-max, in the same order, so
 // no bound on the count is assumed.  The posterior plane never reaches
 // device memory in this mode.
+//
+// The GIVEN kind (the realigner's qp route, `mwt_topk` in
+// ops/kernels/wavefront_kernel.py): the only model, it reads a (D, B, W)
+// f32 posterior plane as it is, with no scales, RMS or clamp, and puts
+// its rows into the ring; the DP warps, the top-k and the tiled DP run on
+// them unchanged.  Over such a plane the MWT (the same adds and maxes,
+// --fmad=false) and the top-k (copies of the values) equal `mwt_skew` and
+// `topk_skew` bit for bit.  `topk_skew` ranks every lane of a row, lane 0
+// too, so this kind ranks lane 0 as well.  The dense mode writes no
+// plane: the caller holds it; only the score (and the match counts).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -97,6 +107,7 @@
 namespace {
 
 constexpr int PARTITION = 2;
+constexpr int GIVEN = 3;  // a given posterior plane: the kernel's NM = 0
 constexpr float TINY = 1e-38f;  // the plain version's floor for log2
 constexpr int MAX_DP_WARPS = 8;
 constexpr int MAX_PRODUCERS = 8;
@@ -238,15 +249,16 @@ __host__ __device__ inline size_t smem_bytes(int G, int lpt, int R) {
 // warp in k rounds: each round takes the largest (value, lowest lane)
 // that comes after the last one taken, among the values >= cutoff, and
 // the first round with nothing left fills the remaining slots with zeros.
-__device__ void select_topk(const float* row, int W, int k, float cutoff,
-                            float* vrow, int32_t* lrow) {
+// Lanes j0 .. W-1 are ranked.
+__device__ void select_topk(const float* row, int j0, int W, int k,
+                            float cutoff, float* vrow, int32_t* lrow) {
   const int l = threadIdx.x & 31;
   float pv = INFINITY;  // the last (value, lane) taken
   int pl = -1;
   for (int t = 0; t < k; ++t) {
     float bv = 0.f;
     int bl = 0x7fffffff;
-    for (int j = 1 + l; j < W; j += 32) {
+    for (int j = j0 + l; j < W; j += 32) {
       const float v = row[j];
       const bool after = v < pv || (v == pv && j > pl);
       if (v >= cutoff && v > 0.f && after && v > bv) {
@@ -276,6 +288,54 @@ __device__ void select_topk(const float* row, int W, int k, float cutoff,
     pv = bv;
     pl = bl;
   }
+}
+
+// Lane j's value v as a top-k candidate (c): compacted into the warp's
+// list in lane order (ballot and popc); ncand counts every candidate.
+__device__ __forceinline__ void push_candidate(bool c, float v, int j,
+                                               int& ncand, float* cand_v,
+                                               int* cand_l) {
+  const int l = threadIdx.x & 31;
+  const unsigned bal = __ballot_sync(FULL_MASK, c);
+  const int pos = ncand + __popc(bal & ((1u << l) - 1u));
+  if (c && pos < 32) {
+    cand_v[pos] = v;
+    cand_l[pos] = j;
+  }
+  ncand += __popc(bal);
+}
+
+// The top k of diagonal d (its ring row from lane j0 on, its ncand
+// candidates) into the vals / lanes outputs, by the producer warp.
+__device__ void write_topk(const Args& a, int d, const float* row, int j0,
+                           int W, int ncand, const float* cand_v,
+                           const int* cand_l) {
+  const int l = threadIdx.x & 31;
+  float* vrow = a.vals + ((size_t)d * a.B + blockIdx.x) * a.topk;
+  int32_t* lrow = a.lanes + ((size_t)d * a.B + blockIdx.x) * a.topk;
+  __syncwarp();
+  if (ncand <= 32) {
+    // one lane a candidate: its rank among all of them
+    const float v = l < ncand ? cand_v[l] : 0.f;
+    const int jl = l < ncand ? cand_l[l] : 0;
+    int rank = 0;
+    for (int i = 0; i < ncand; ++i) {
+      const float v2 = __shfl_sync(FULL_MASK, v, i);
+      const int j2 = __shfl_sync(FULL_MASK, jl, i);
+      rank += (v2 > v || (v2 == v && j2 < jl)) ? 1 : 0;
+    }
+    if (l < ncand && rank < a.topk) {
+      vrow[rank] = v;
+      lrow[rank] = jl;
+    }
+    for (int q = ncand + l; q < a.topk; q += 32) {
+      vrow[q] = 0.f;
+      lrow[q] = 0;
+    }
+  } else {
+    select_topk(row, j0, W, a.topk, a.cutoff, vrow, lrow);
+  }
+  __syncwarp();  // the list is this warp's again next turn
 }
 
 // Producer warp pw of P: the posterior rows of diagonals pw, pw + P, ...
@@ -361,45 +421,51 @@ __device__ void produce(const Args& a, int pw, int P, int R, int rowf,
           row[j] = post;
           if constexpr (!TOPK) out[j] = post;
         }
-        if constexpr (TOPK) {
-          const bool c = j < W && post >= a.cutoff && post > 0.f;
-          const unsigned bal = __ballot_sync(FULL_MASK, c);
-          const int pos = ncand + __popc(bal & ((1u << l) - 1u));
-          if (c && pos < 32) {
-            cand_v[pos] = post;
-            cand_l[pos] = j;
-          }
-          ncand += __popc(bal);
-        }
+        if constexpr (TOPK)
+          push_candidate(j < W && post >= a.cutoff && post > 0.f, post, j,
+                         ncand, cand_v, cand_l);
       }
     }
-    if constexpr (TOPK) {
-      float* vrow = a.vals + ((size_t)d * B + b) * a.topk;
-      int32_t* lrow = a.lanes + ((size_t)d * B + b) * a.topk;
-      __syncwarp();
-      if (ncand <= 32) {
-        // one lane a candidate: its rank among all of them
-        const float v = l < ncand ? cand_v[l] : 0.f;
-        const int jl = l < ncand ? cand_l[l] : 0;
-        int rank = 0;
-        for (int i = 0; i < ncand; ++i) {
-          const float v2 = __shfl_sync(FULL_MASK, v, i);
-          const int j2 = __shfl_sync(FULL_MASK, jl, i);
-          rank += (v2 > v || (v2 == v && j2 < jl)) ? 1 : 0;
-        }
-        if (l < ncand && rank < a.topk) {
-          vrow[rank] = v;
-          lrow[rank] = jl;
-        }
-        for (int q = ncand + l; q < a.topk; q += 32) {
-          vrow[q] = 0.f;
-          lrow[q] = 0;
-        }
-      } else {
-        select_topk(row, W, a.topk, a.cutoff, vrow, lrow);
+    if constexpr (TOPK) write_topk(a, d, row, 1, W, ncand, cand_v, cand_l);
+    mbar_arrive(full + s);  // each lane after its own writes
+  }
+}
+
+// Producer warp pw of P, GIVEN kind: the rows of diagonals pw, pw + P, ...
+// of the plane in `fwd`, lanes 0 .. Lp, copied into the ring as they are;
+// every lane, lane 0 too, a top-k candidate.
+template <bool TOPK>
+__device__ void produce_given(const Args& a, int pw, int P, int R, int rowf,
+                              float* ring, uint64_t* full, uint64_t* empty,
+                              float* cand_v, int* cand_l) {
+  const int l = threadIdx.x & 31;
+  const int Lp = a.Lp, B = a.B, W = Lp + 1, D = 2 * Lp + 1;
+  const int b = blockIdx.x;
+  constexpr int UNROLL = 16;
+  for (int d = pw; d < D; d += P) {
+    const int s = d % R, use = d / R;
+    const float* src = a.fwd + ((size_t)d * B + b) * W;
+    float* row = ring + (size_t)s * rowf + 3;  // lane j at row[j]
+    int ncand = 0;
+    for (int j0 = 0; j0 < W; j0 += 32 * UNROLL) {
+      float v[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int j = j0 + 32 * u + l;
+        v[u] = j < W ? src[j] : 0.f;
       }
-      __syncwarp();  // the list is this warp's again next turn
+      // the DP has read the row this one overwrites
+      if (j0 == 0 && use > 0) mbar_wait(empty + s, (use - 1) & 1);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int j = j0 + 32 * u + l;
+        if (j < W) row[j] = v[u];
+        if constexpr (TOPK)
+          push_candidate(j < W && v[u] >= a.cutoff && v[u] > 0.f, v[u], j,
+                         ncand, cand_v, cand_l);
+      }
     }
+    if constexpr (TOPK) write_topk(a, d, row, 0, W, ncand, cand_v, cand_l);
     mbar_arrive(full + s);  // each lane after its own writes
   }
 }
@@ -616,8 +682,9 @@ __device__ void mwt(const Args& a, int g, int G, int R, int rowf,
   }
 }
 
-// warps 0 .. G-1 run the DP, the rest produce posterior rows; TILED:
-// the DP in T tiles, its edge slots after the candidate lists
+// warps 0 .. G-1 run the DP, the rest produce posterior rows (NM = 0:
+// the rows of a given plane); TILED: the DP in T tiles, its edge slots
+// after the candidate lists
 template <int NM, int LPT, bool TOPK, bool WM, bool TILED>
 __global__ void __launch_bounds__(512)
     combine_kernel(const Args a, int G, int R, int T) {
@@ -653,8 +720,12 @@ __global__ void __launch_bounds__(512)
       mwt<LPT, WM>(a, warp, G, R, rowf, smem, full, empty, edge);
   } else {
     const int pw = warp - G;
-    produce<NM, TOPK>(a, pw, P, R, rowf, smem, full, empty,
-                      cand_v + pw * 32, cand_l + pw * 32);
+    if constexpr (NM == 0)
+      produce_given<TOPK>(a, pw, P, R, rowf, smem, full, empty,
+                          cand_v + pw * 32, cand_l + pw * 32);
+    else
+      produce<NM, TOPK>(a, pw, P, R, rowf, smem, full, empty,
+                        cand_v + pw * 32, cand_l + pw * 32);
   }
 }
 
@@ -738,6 +809,10 @@ extern "C" int combine_launch(const void* fwd, const void* fsc,
   const int W = Lp + 1;
   if (Lp < 0 || nm < 1 || nm > 3 || B < 1 || topk < 0 || topk > W)
     return (int)cudaErrorInvalidValue;
+  // GIVEN: the only model, its plane in fwd
+  const bool given = k0 == GIVEN;
+  if ((given && nm != 1) || k1 == GIVEN || k2 == GIVEN)
+    return (int)cudaErrorInvalidValue;
   const Args a = {(const float*)fwd, (const float*)fsc, (const float*)fl2t,
                   (const float*)rev, (const float*)rsc, (const float*)rl2t,
                   (const int32_t*)lx, (const int32_t*)ly, k0, k1, k2, B, Lp,
@@ -745,7 +820,8 @@ extern "C" int combine_launch(const void* fwd, const void* fsc,
                   (float*)score, (float*)nb};
   const auto st = (cudaStream_t)stream;
   const bool wm = with_matches != 0;
-  cudaError_t err = nm == 1   ? launch_lpt<1>(a, wm, st)
+  cudaError_t err = given     ? launch_lpt<0>(a, wm, st)
+                    : nm == 1 ? launch_lpt<1>(a, wm, st)
                     : nm == 2 ? launch_lpt<2>(a, wm, st)
                               : launch_lpt<3>(a, wm, st);
   return (int)err;

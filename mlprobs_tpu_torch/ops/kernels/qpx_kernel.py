@@ -1,11 +1,13 @@
 """Wrapper of the realigner's qpx HMM5 forward/backward CUDA kernels
 (csrc/qpx.cu).
 
-`hmm5_fb` computes what `qpx.hmm5_fb_qpx` computes, in one forward and
-one backward launch: the QuickProbs-exact forward and backward match
-planes, (D, B, W) views of padded (D + 2, B, W + 1) buffers, and each
-pair's total.  The JAX package runs each direction as an XLA scan; the
-plain version is a Python loop over diagonals, one device launch an op.
+`hmm5_fb` computes what `qpx.hmm5_fb_qpx` computes, in one launch that
+runs every pair's forward and backward at once: the QuickProbs-exact
+forward and backward match planes, (D, B, W) views of padded
+(D + 2, B, W + 1) buffers, and each pair's total, (totalF + totalB) * 0.5
+of the two directions' totals, as the plain version forms it.  The JAX
+package runs each direction as an XLA scan; the plain version is a
+Python loop over diagonals, one device launch an op.
 `hmm5_posterior` adds the plain version's chunked posterior pass
 (`qpx.posterior_from_fb`), which is elementwise over a few dozen chunks
 and not launch-bound.
@@ -13,8 +15,7 @@ and not launch-bound.
 On a CPU tensor the wrapper runs the plain version.  For any other
 tensor it launches the kernels on the current stream or raises; an
 argument the kernels do not take raises KernelArgumentError.
-`hmm5_fb.launches` counts the calls that launched (each one forward and
-one backward kernel).
+`hmm5_fb.launches` counts the launches.
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ def hmm5_fb(xp, yp, lx, ly, init, trans, lmatch, lins):
     fwd_mp = torch.empty((D + 2, B, W + 1), dtype=torch.float32, device=dev)
     bwd_mp = torch.empty((D + 2, B, W + 1), dtype=torch.float32, device=dev)
     total_f = torch.empty((B,), dtype=torch.float32, device=dev)
-    total = torch.empty((B,), dtype=torch.float32, device=dev)
+    total_b = torch.empty((B,), dtype=torch.float32, device=dev)
     ring = lib.qpx_scratch_floats(Lp)   # 0: the rings fit on chip
     scratch = (torch.empty((B, ring), dtype=torch.float32, device=dev)
                if ring else None)
@@ -80,12 +81,13 @@ def hmm5_fb(xp, yp, lx, ly, init, trans, lmatch, lins):
         err = lib.qpx_launch(
             xp.data_ptr(), yp.data_ptr(), lx.data_ptr(), ly.data_ptr(),
             tab.data_ptr(), B, Lp, fwd_mp.data_ptr(), bwd_mp.data_ptr(),
-            total_f.data_ptr(), total.data_ptr(),
+            total_f.data_ptr(), total_b.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"qpx kernel launch failed: CUDA error {err}")
     hmm5_fb.launches += 1
+    total = total_f.add_(total_b).mul_(0.5)   # the plain version's order
     return fwd_mp[2:, :, 1:], bwd_mp[:D, :, :W], total
 
 

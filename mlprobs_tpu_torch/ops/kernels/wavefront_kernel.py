@@ -8,13 +8,19 @@ engine's (ops/wavefront.py), not the TPU's layout: skewed planes of
 D = 2*Lp + 1 rows and W = Lp + 1 lanes, per-diagonal scales as separate
 (D, B) tensors, exact zeros beyond the true extents.
 
+`mwt_topk` runs combine's MWT and top-k over a posterior plane that the
+caller already holds (the kernel's GIVEN kind): the realigner's qp route,
+whose plane comes from the qpx kernels and the partition posterior.
+
 Each wrapper runs its plain PyTorch version (`sweep_reference`,
-`combine_reference`) only when its input lies on the CPU.  For any other
-tensor it launches the kernel on the current stream or raises: a build or
-launch failure is never answered by the plain version.  An argument the
+`combine_reference`, `mwt_topk_reference`) only when its input lies on
+the CPU.  For any other tensor it launches the kernel on the current
+stream or raises: a build or launch failure is never answered by the
+plain version.  An argument the
 kernel does not take raises KernelArgumentError, a fault of the caller
 that no stage of the pipeline keeps a block for.  `sweep.launches` and
-`combine.launches` count the kernel launches.
+`combine.launches` count the kernel launches (`mwt_topk`'s among
+combine's).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from mlprobs_tpu_torch.ops.kernels import build, qpx_kernel, viterbi_kernel
 from mlprobs_tpu_torch.ops.kernels.build import KernelArgumentError, check_arg
 
 MODEL_KIND = {"hmm5": 0, "local": 1, "partition": 2}
+GIVEN = 3   # csrc/combine.cu: a given posterior plane, the only model
 # per-model packed table layout, in floats (csrc/sweep.cu TAB_*)
 TAB_SIZE = 544
 _TAB_PINS, _TAB_T, _TAB_INIT = 448, 496, 528
@@ -45,11 +52,19 @@ def combine_reference(fwd, rev, lx, ly, models, with_matches=False,
             p = wf.posterior_skew(fwd, rev, m)
             acc = p * p if acc is None else acc + p * p
         post = torch.sqrt(acc / len(models))
+    out = mwt_topk_reference(post, lx, ly, with_matches=with_matches,
+                             topk=topk, cutoff=cutoff)
+    return out if topk else (post,) + out
+
+
+def mwt_topk_reference(post, lx, ly, with_matches=False, topk=0,
+                       cutoff=0.01):
+    """Plain version of `mwt_topk`: `topk_skew` and `mwt_skew` of the
+    plane."""
     mw = wf.mwt_skew(post, lx, ly, with_matches=with_matches)
     mw = mw if with_matches else (mw,)
-    if topk:
-        return wf.topk_skew(post, topk, cutoff) + tuple(mw)
-    return (post,) + tuple(mw)
+    head = wf.topk_skew(post, topk, cutoff) if topk else ()
+    return tuple(head) + tuple(mw)
 
 
 def pack_tables(tables, models, device) -> torch.Tensor:
@@ -192,6 +207,52 @@ def combine(fwd, rev, lx, ly, models=("hmm5",), with_matches=False,
 
 
 combine.launches = 0
+
+
+def mwt_topk(post, lx, ly, with_matches=False, topk=0, cutoff=0.01):
+    """MWT (and per-diagonal top-k) of a given (D, B, W) posterior plane,
+    one launch of combine's GIVEN kind; the plane is read, not written.
+
+    topk > 0: returns (vals (D, B, topk), lanes (D, B, topk) int32,
+    score (B,)[, nb (B,)]), as `topk_skew` + `mwt_skew`, lane 0 ranked;
+    topk == 0: (score[, nb]).
+    """
+    if post.device.type == "cpu":
+        return mwt_topk_reference(post, lx, ly, with_matches=with_matches,
+                                  topk=topk, cutoff=cutoff)
+    lib = build.lib("combine")
+    dev = post.device
+    if post.dim() != 3 or post.shape[2] < 1:
+        raise KernelArgumentError(f"post has shape {tuple(post.shape)}, "
+                                  f"expected (2Lp + 1, B, Lp + 1)")
+    _, B, W = post.shape
+    Lp = W - 1
+    check_arg("post", post, torch.float32, (2 * Lp + 1, B, W), dev)
+    check_arg("lx", lx, torch.int32, (B,), dev)
+    check_arg("ly", ly, torch.int32, (B,), dev)
+    if not 0 <= topk <= W:
+        raise KernelArgumentError(f"topk {topk} outside [0, {W}]")
+    D = 2 * Lp + 1
+    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    nb = torch.empty((B,), dtype=torch.float32, device=dev)
+    vals = lanes = None
+    if topk:
+        vals = torch.empty((D, B, topk), dtype=torch.float32, device=dev)
+        lanes = torch.empty((D, B, topk), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.combine_launch(
+            post.data_ptr(), 0, 0, 0, 0, 0, lx.data_ptr(), ly.data_ptr(),
+            1, GIVEN, 0, 0, B, Lp, int(bool(with_matches)), int(topk),
+            float(cutoff), 0, 0 if vals is None else vals.data_ptr(),
+            0 if lanes is None else lanes.data_ptr(), score.data_ptr(),
+            nb.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"combine kernel launch failed: CUDA error {err}")
+    combine.launches += 1
+    head = (vals, lanes) if topk else ()
+    return head + ((score, nb) if with_matches else (score,))
 
 
 def sweeps(X, Y, LX, LY, tabs_f, tabs_r, models):

@@ -8,7 +8,9 @@ relative to each row's max after aligning both to one scale, log2 totals
 2e-4, posteriors 2e-4, MWT score rtol 1e-4 / atol 1e-3, match counts
 exact, top-k values 1e-7 with lanes equal wherever the value is
 positive.  The Viterbi and qpx kernels: bit equality over every returned
-tensor.
+tensor.  combine's GIVEN kind (`mwt_topk`) over a given plane: top-k
+values, scores and match counts bit-equal to `topk_skew` + `mwt_skew`,
+lanes equal wherever the value is positive.
 """
 import numpy as np
 import pytest
@@ -472,10 +474,12 @@ def test_viterbi_kernel_bit_equal_on_card(cuda_device, lp, b):
 
 def _qpx_lengths():
     # lane edges of csrc/qpx.cu: as _vit_lengths, the ring leaving shared
-    # memory past 2,048 lanes; the plain version's loop bounds the
-    # longest (Lp = 4,100: ~30 s of plain torch on the card)
+    # memory past 2,048 lanes, there with more pairs than the card has
+    # SMs; the plain version's loop bounds the longest (Lp = 4,100: ~30 s
+    # of plain torch on the card)
     return [(1, 3), (2, 3), (63, 4), (64, 4), (65, 4), (128, 8),
-            (512, 256), (1023, 2), (2047, 1), (2048, 1), (4100, 1)]
+            (512, 256), (1023, 2), (2047, 1), (2048, 1), (2049, 140),
+            (4100, 1)]
 
 
 @pytest.mark.cuda
@@ -494,3 +498,79 @@ def test_qpx_kernel_bit_equal_on_card(cuda_device, lp, b):
     post = tqpx.posterior_from_fb(*got, lx, ly)
     del got, want
     assert torch.equal(post, tqpx.hmm5_posterior_qpx(X, Y, lx, ly, *p5))
+
+
+def _given_lengths():
+    # combine's lane mapping (one DP warp up to Lp = 512, 16 then 32
+    # lanes a thread, the tiled DP past 8,192 lanes at B = 1) and the
+    # realigner's qp batch (Lp = 512, B = 256)
+    return [(1, 3), (2, 3), (63, 4), (64, 4), (65, 4), (512, 256),
+            (1023, 3), (2047, 2), (4097, 2), (8192, 1), (8320, 1),
+            (16384, 1)]
+
+
+def _given_plane(device, lp, b, seed, kind):
+    """(post (D, B, W), lx, ly) for combine's GIVEN kind.  "ties": a few
+    values a diagonal (fewer than a warp's 32 candidates), each one of
+    four levels, so equal values compete for the top-k; "noise": dense
+    values, half of them at the same levels, and uniform noise in every
+    cell outside each pair's grid (lane 0, i < 1, past lx and ly), which
+    the MWT must not read and the top-k must rank."""
+    rng = np.random.default_rng(seed)
+    lx = rng.integers(max(1, lp // 2), lp + 1, size=b).astype(np.int32)
+    ly = rng.integers(max(1, lp // 2), lp + 1, size=b).astype(np.int32)
+    lx[0] = ly[-1] = lp
+    lx, ly = (torch.from_numpy(a).to(device) for a in (lx, ly))
+    g = torch.Generator(device=device).manual_seed(seed)
+    D, W = 2 * lp + 1, lp + 1
+    shape = (D, b, W)
+    d = torch.arange(D, device=device)[:, None, None]
+    j = torch.arange(W, device=device)[None, None, :]
+    grid = ((j >= 1) & (j <= ly[None, :, None]) & (d - j >= 1)
+            & (d - j <= lx[None, :, None]))
+    levels = torch.tensor([0.125, 0.25, 0.375, 0.5], device=device)
+    level = levels[torch.randint(0, 4, shape, generator=g, device=device)]
+    if kind == "ties":
+        keep = torch.rand(shape, generator=g, device=device) < 8.0 / W
+        post = torch.where(grid & keep, level, 0.0)
+    else:
+        val = torch.where(torch.rand(shape, generator=g, device=device)
+                          < 0.5, level,
+                          torch.rand(shape, generator=g, device=device))
+        keep = torch.rand(shape, generator=g, device=device) < 0.3
+        post = torch.where(grid, torch.where(keep, val, 0.0),
+                           torch.rand(shape, generator=g, device=device))
+    return post.contiguous(), lx, ly
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ties", "noise"])
+@pytest.mark.parametrize("lp,b", _given_lengths())
+def test_combine_given_mode_on_card(cuda_device, lp, b, kind):
+    """combine's GIVEN kind (`mwt_topk`) against `topk_skew` + `mwt_skew`
+    on the same card plane: dense, top-k 1 and 16, each without and with
+    match counts; values and scores equal bit for bit, match counts
+    exact, lanes equal wherever the value is positive; one launch a call,
+    counted in combine's launches."""
+    post, lx, ly = _given_plane(cuda_device, lp, b, lp * 29 + b, kind)
+    before = post.clone()
+    score_p, nb_p = twf.mwt_skew(post, lx, ly, with_matches=True)
+    assert torch.equal(twf.mwt_skew(post, lx, ly), score_p)
+    for k in (0, 1, 16):
+        k = min(k, lp + 1)
+        if k:
+            vw, lw = twf.topk_skew(post, k, 0.01)
+        for wm in (False, True):
+            n = twk.combine.launches
+            out = twk.mwt_topk(post, lx, ly, with_matches=wm, topk=k,
+                               cutoff=0.01)
+            assert twk.combine.launches == n + 1
+            assert len(out) == (2 if k else 0) + 1 + wm
+            if k:
+                vals, lanes = out[:2]
+                assert torch.equal(vals, vw)
+                assert torch.equal(lanes[vw > 0], lw[vw > 0])
+            assert torch.equal(out[2 if k else 0], score_p)
+            if wm:
+                assert torch.equal(out[-1], nb_p)
+    assert torch.equal(post, before)   # the plane is read, not written

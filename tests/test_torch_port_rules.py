@@ -317,17 +317,19 @@ def test_wrappers_raise_instead_of_falling_back(no_kernel_library):
 
 
 @pytest.mark.parametrize("stage", ["viterbi_stat_batches",
-                                   "qpx_combined_skew"])
+                                   "qpx_combined_skew", "qp_tail"])
 def test_feature_and_qpx_stages_go_through_the_wrappers(monkeypatch, stage):
-    """The feature pass and the realigner's qp posterior call the kernel
-    wrappers (which run their plain versions only on the CPU): a counter
-    put in place of each wrapper sees every batch."""
+    """The feature pass, the realigner's qp posterior and the qp route's
+    MWT and top-k call the kernel wrappers (which run their plain versions
+    only on the CPU): a counter put in place of each wrapper sees every
+    batch."""
     from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk
     from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk
 
     calls = []
-    mod, name = ((vk, "viterbi_stats") if stage == "viterbi_stat_batches"
-                 else (qk, "hmm5_fb"))
+    mod, name = {"viterbi_stat_batches": (vk, "viterbi_stats"),
+                 "qpx_combined_skew": (qk, "hmm5_fb"),
+                 "qp_tail": (wk, "mwt_topk")}[stage]
     real = getattr(mod, name)
 
     def counted(*a, **kw):
@@ -344,6 +346,18 @@ def test_feature_and_qpx_stages_go_through_the_wrappers(monkeypatch, stage):
             seqs, pairs, np.eye(21, dtype=np.float32), device="cpu"))
         assert len(calls) == len(batches) >= 1
         assert sum(len(b[0]) for b in batches) == len(pairs)
+    elif stage == "qp_tail":
+        # the sparse route (top-k with match counts) and the dense one
+        n_pairs = 5 * 4 // 2
+        out = list(pairwise.all_pairs_posteriors(seqs, "qp",
+                                                 with_matches=True,
+                                                 device="cpu"))
+        assert len(out) == n_pairs
+        sparse = [c[1] for c in calls]
+        assert len(sparse) >= 1 and sum(sparse) == n_pairs
+        calls.clear()
+        pairwise.device_posterior_tensor(seqs, "qp", None, device="cpu")
+        assert len(calls) >= 1 and sum(c[1] for c in calls) == n_pairs
     else:
         X = torch.from_numpy(np.stack([np.pad(s[:20], (0, 12),
                                               constant_values=20)
@@ -358,8 +372,9 @@ def test_feature_and_qpx_stages_go_through_the_wrappers(monkeypatch, stage):
 
 def test_feature_wrappers_raise_instead_of_falling_back(no_kernel_library,
                                                         monkeypatch):
-    """The Viterbi and qpx wrappers: a tensor that is not on the CPU goes
-    to the kernel or raises, and the plain version never runs."""
+    """The Viterbi, qpx and MWT/top-k wrappers: a tensor that is not on
+    the CPU goes to the kernel or raises, and the plain version never
+    runs."""
     from mlprobs_tpu_torch.ops import qpx
     from mlprobs_tpu_torch.ops.kernels import qpx_kernel as qk
     from mlprobs_tpu_torch.ops.kernels import viterbi_kernel as vk
@@ -369,14 +384,22 @@ def test_feature_wrappers_raise_instead_of_falling_back(no_kernel_library,
 
     monkeypatch.setattr(vk, "viterbi_reference", plain_must_not_run)
     monkeypatch.setattr(qpx, "hmm5_fb_qpx", plain_must_not_run)
+    monkeypatch.setattr(wk.wf, "mwt_skew", plain_must_not_run)
+    monkeypatch.setattr(wk.wf, "topk_skew", plain_must_not_run)
     meta = torch.device("meta")
     X = torch.empty((2, 64), dtype=torch.int8, device=meta)
     L = torch.empty((2,), dtype=torch.int32, device=meta)
-    launches = (vk.viterbi_stats.launches, qk.hmm5_fb.launches)
+    post = torch.empty((129, 2, 65), dtype=torch.float32, device=meta)
+    launches = (vk.viterbi_stats.launches, qk.hmm5_fb.launches,
+                wk.combine.launches)
     with pytest.raises(build.KernelBuildError):
         vk.viterbi_stats(X, X, L, L, {}, None, None)
     with pytest.raises(build.KernelBuildError):
         qk.hmm5_fb(X, X, L, L, None, None, None, None)
     with pytest.raises(build.KernelBuildError):
         qk.hmm5_posterior(X, X, L, L, None, None, None, None)
-    assert (vk.viterbi_stats.launches, qk.hmm5_fb.launches) == launches
+    for topk in (0, 16):
+        with pytest.raises(build.KernelBuildError):
+            wk.mwt_topk(post, L, L, with_matches=True, topk=topk)
+    assert (vk.viterbi_stats.launches, qk.hmm5_fb.launches,
+            wk.combine.launches) == launches
