@@ -19,8 +19,8 @@ sets its meshes itself.  Phases (any failure exits non-zero):
     version's bit for bit.  Then each kernel's time at the main path's
     shapes beside its plain version's and its bound (combine in each
     mode: dense, with match counts, top-k 16, and dense again at the
-    family's last batch size), and the sweep's time for each
-    single-model set;
+    family's last batch size; the Viterbi kernel's share of its bound
+    too), and the sweep's time for each single-model set;
  4. the main path: a seeded twilight-zone family (N=48, 330-470
     residues) through `align_family(config="pnp")` on the card, with
     the kernels' launch counts, per-stage wall clock and peak memory;
@@ -73,8 +73,9 @@ sets its meshes itself.  Phases (any failure exits non-zero):
     varies, and the run fails at its end, after the later phases);
 12. [long]: sweep and combine at B=1, Lp=8,320 (the long family's
     length, past the short instances) against their plain versions, the
-    Viterbi kernel there bit for bit (its rings past shared memory), and
-    the three kernels' times at B=1 at Lp=8,192 and 8,320; then `cli
+    Viterbi kernel at B=2 there bit for bit (65 strips of 128 lanes in
+    five rounds of 13 warps) with its time and bound, and the
+    three kernels' times at B=1 at Lp=8,192 and 8,320; then `cli
     base` on a
     three-sequence family with one sequence of 8,250 residues (every
     pair past 8,192 lanes or beside it): wall time, stage timers,
@@ -1347,6 +1348,8 @@ def main() -> None:
               for m in models}
     rec = {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0]}
            for k, v in timing.items()}
+    rec["viterbi"]["share_of_bound"] = bounds["viterbi"][0] / timing[
+        "viterbi"][0]
     rec["sweep_single_ms"] = single
     rec["qpx"]["parent_recorded_ms"] = QPX_PARENT_MS   # not measured here
     print(f"[timing] mix Lp={lp} B={b} (combine_b104: B={b_last}): "
@@ -1772,7 +1775,7 @@ def main() -> None:
     # The check runs at Lp = 8,320, the length the long family below
     # takes: past the short instances, so the sweep at 32 lanes a thread
     # and combine's tiled DP, in each mode the path runs, and the Viterbi
-    # kernel with its rings in L2 past 4,096 lanes (the card tests
+    # kernel at B = 2, its strips in rounds past 2,048 lanes (the card tests
     # hold 8,192, the short instances' last length, and 8,320 as well;
     # here one length keeps the run near half its limit, the plain
     # versions' 16,641-diagonal loops being the slow part).  The log2
@@ -1818,12 +1821,21 @@ def main() -> None:
             if wm:
                 topk_rest &= bool(torch.equal(out[3], nb_k))
             del out
-        # the Viterbi kernel with its rings past shared memory
+        # the Viterbi kernel at B = 2, its strips in rounds
+        Xv, Yv, LXv, LYv = batch(lp_chk, 2, seed=lp_chk + 1)
         v_equal = all(bool(torch.equal(a_, b_)) for a_, b_ in zip(
-            vk.viterbi_stats(X, Y, LX, LY, *tabs_v),
-            vk.viterbi_reference(X, Y, LX, LY, *tabs_v)))
+            vk.viterbi_stats(Xv, Yv, LXv, LYv, *tabs_v),
+            vk.viterbi_reference(Xv, Yv, LXv, LYv, *tabs_v)))
+        Dv, Wv = 2 * lp_chk + 1, lp_chk + 1
+        v_ms = cuda_ms(lambda: vk.viterbi_stats(Xv, Yv, LXv, LYv, *tabs_v),
+                       3)
+        v_bound = bound(2 * 2 * lp_chk + 16 + vk.TAB_SIZE * 4
+                        + Dv * 2 * Wv + 32 + 2 * lp_chk * 2 * 4,
+                        VITERBI_OPS_CELL * Dv * Wv * 2)[0]
+        del Xv, Yv, LXv, LYv
         chk = long_rec[f"check_lp{lp_chk}"] = {
-            "viterbi_bit_equal": v_equal,
+            "viterbi_b2_bit_equal": v_equal, "viterbi_b2_ms": v_ms,
+            "viterbi_b2_bound_ms": v_bound,
             "plane_err": e_plane, "scale_rows_differing": scale_rows,
             "l2t_kernel_plain": l2t_pairs, "l2t_ok": l2t_ok,
             "post_err": e_post, "pad_nonzero": pad_nonzero,
@@ -1962,6 +1974,11 @@ def main() -> None:
         })
         if name == "combine":   # the qp route's MWT and top-k ([qp])
             kernels[-1]["given_kind"] = given
+        if name == "viterbi":
+            kernels[-1]["design"] = (
+                "redesigned for Hopper: states in registers, 4 lanes a "
+                "thread, warp strips joined by shared-memory rings, the "
+                "walk a 32x32 window at a time")
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,6 +13,8 @@ raises; an argument the kernel does not take raises KernelArgumentError.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from mlprobs_tpu_torch.ops import wavefront as wf
@@ -51,6 +53,24 @@ def pack_tables(p, vinit, blosum, device) -> torch.Tensor:
     return tab
 
 
+# the last table block packed on each device, with weak references to the
+# tensors it was packed from and their versions: a batch that passes the
+# same unmodified tables (every batch of a family) reuses it
+_PACKED: dict = {}
+
+
+def _packed_tables(p, vinit, blosum, device) -> torch.Tensor:
+    srcs = (p["lmatch"], p["lins"], p["trans"], vinit, blosum)
+    versions = tuple(t._version for t in srcs)
+    hit = _PACKED.get(device)
+    if (hit is not None and hit[1] == versions
+            and all(r() is t for r, t in zip(hit[0], srcs))):
+        return hit[2]
+    tab = pack_tables(p, vinit, blosum, device)
+    _PACKED[device] = (tuple(weakref.ref(t) for t in srcs), versions, tab)
+    return tab
+
+
 def viterbi_stats(xp, yp, lx, ly, p, vinit, blosum):
     """Viterbi of one pair batch and its path statistics, one launch.
 
@@ -81,16 +101,18 @@ def viterbi_stats(xp, yp, lx, ly, p, vinit, blosum):
                            ("vinit", vinit, (3,)),
                            ("blosum", blosum, (21, 21))):
         check_arg(name, t, torch.float32, shape, dev)
-    tab = pack_tables(p, vinit, blosum, dev)
+    tab = _packed_tables(p, vinit, blosum, dev)
     dirs = torch.empty((D, B, W), dtype=torch.int8, device=dev)
     ends = torch.empty((B,), dtype=torch.int32, device=dev)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     plen = torch.empty((B,), dtype=torch.int32, device=dev)
     matches = torch.empty((B,), dtype=torch.int32, device=dev)
     srev = torch.empty((2 * Lp, B), dtype=torch.float32, device=dev)
-    ring = lib.viterbi_scratch_floats(Lp)   # 0: the rings fit on chip
-    scratch = (torch.empty((B, ring), dtype=torch.float32, device=dev)
-               if ring else None)
+    # 0 while a pair's strips fit in one round of the block's warps; past
+    # that, the column that carries a round's last lane to the next round
+    column = lib.viterbi_scratch_floats(Lp)
+    scratch = (torch.empty((B, column), dtype=torch.float32, device=dev)
+               if column else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.viterbi_launch(

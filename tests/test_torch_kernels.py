@@ -315,6 +315,39 @@ def test_kernels_past_8192_lanes_on_card(cuda_device, mode, lp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lp", [16512, 24704])
+def test_combine_ring_rows_on_card(cuda_device, lp):
+    """combine at B = 1 where its ring holds two rows (Lp = 16,512: the
+    tiled DP's row of 5 x 4,096 lanes, 81,936 bytes, leaves no room for a
+    third in the block's 232,448) and one row (Lp = 24,704: 7 tiles): mix,
+    dense with match counts against combine_reference on the same kernel
+    sweeps, then top-k 16 with match counts against topk_skew of the
+    kernel's dense plane, as _combine_vs_plain holds them.  At Lp =
+    24,704 the six f32 sweep planes are 29 GB."""
+    models = MODEL_SETS["mix"]
+    X, Y, lx, ly = (t[:1].contiguous() for t in _edge_batch(
+        cuda_device, lp, 2, seed=lp + 3))
+    tf, tr = tpw._wf_tables("mix", 0.17, cuda_device)
+    fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
+    post, score, nb = twk.combine(fk, rk, lx, ly, models, with_matches=True)
+    post_p, score_p, nb_p = twk.combine_reference(fk, rk, lx, ly, models,
+                                                  with_matches=True)
+    assert float((post - post_p).abs().max()) <= 2e-4
+    del post_p
+    torch.testing.assert_close(score, score_p, rtol=1e-4, atol=1e-3)
+    assert torch.equal(nb, nb_p)
+    vw, lw = twf.topk_skew(post, 16, 0.01)
+    del post
+    vals, lanes, sc_t, nb_t = twk.combine(fk, rk, lx, ly, models,
+                                          with_matches=True, topk=16,
+                                          cutoff=0.01)
+    assert float((vals - vw).abs().max()) <= 1e-7
+    assert torch.equal(lanes[vw > 0], lw[vw > 0])
+    assert torch.equal(sc_t, score)
+    assert torch.equal(nb_t, nb)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lp", [128, 512])
 def test_qp_scaled_tables_on_card(cuda_device, lp):
     """The scaled-kernel qp route (MLPROBS_QP_EXACT=0): both kernels on
@@ -447,13 +480,18 @@ def test_feature_wrappers_reject_bad_arguments(monkeypatch, which, case):
 
 
 def _vit_lengths():
-    # lane edges of csrc/viterbi.cu: one warp (W <= 64), a warp's last
-    # and next lane, the main shape, 1,024 threads of 2 lanes (W = 2,048)
-    # and past them, the ring leaving shared memory (W = 4,097), and the
-    # long family's Lp
-    return [(1, 3), (2, 3), (63, 4), (64, 4), (65, 4), (128, 8),
-            (512, 256), (1023, 2), (2047, 1), (2048, 1), (4095, 1),
-            (4096, 1), (8320, 1)]
+    # lane edges of csrc/viterbi.cu (4 lanes a thread, lane 0 beside the
+    # first thread's lanes 1-4, a warp's strip of 128 lanes, 16 warps a
+    # block, more strips in rounds): every remainder of Lp by 4, one strip
+    # and the next (Lp = 128, 129, 130), the main shape and a batch around
+    # the card's 132 SMs, 16 strips in one round (Lp = 2,048) and 17 in two
+    # (2,049), 32 strips in two rounds and 33 in three (4,096, 4,097), the
+    # long family's Lp at B = 1 and 2, and 128 strips in 8 rounds (16,384)
+    return [(1, 3), (2, 3), (3, 3), (4, 3), (5, 3), (62, 4), (63, 4),
+            (64, 4), (65, 4), (127, 3), (128, 8), (129, 3), (130, 3),
+            (512, 256), (512, 131), (512, 132), (512, 133), (1023, 2),
+            (2047, 1), (2048, 1), (2049, 1), (4095, 1), (4096, 1),
+            (4097, 1), (8320, 1), (8320, 2), (16384, 1)]
 
 
 @pytest.mark.cuda
@@ -464,6 +502,62 @@ def test_viterbi_kernel_bit_equal_on_card(cuda_device, lp, b):
     first pair, y in the last): every returned tensor equal bit for bit,
     and one launch counted."""
     X, Y, lx, ly = _edge_batch(cuda_device, lp, b, seed=lp * 17 + b)
+    tabs = _viterbi_tables(cuda_device)
+    n = tvk.viterbi_stats.launches
+    got = tvk.viterbi_stats(X, Y, lx, ly, *tabs)
+    assert tvk.viterbi_stats.launches == n + 1
+    _assert_bit_equal(VIT_OUT, got,
+                      tvk.viterbi_reference(X, Y, lx, ly, *tabs))
+
+
+def _walk_batch(device, kind, lp, b, seed):
+    """(X, Y, lx, ly) where the traceback wraps or ties decide: "empty"
+    (lx = 0 or ly = 0), "ones" (lengths 0 to 2), "repeat" (one residue
+    repeated: equal scores everywhere), "short" (Lp far above both
+    lengths)."""
+    rng = np.random.default_rng(seed)
+    if kind == "empty":
+        lx = rng.integers(0, lp + 1, size=b)
+        ly = rng.integers(0, lp + 1, size=b)
+        lx[::2] = 0
+        ly[1::2] = 0
+        lx[-1] = ly[-1] = 0
+    elif kind == "ones":
+        lx = rng.integers(0, 3, size=b)
+        ly = rng.integers(0, 3, size=b)
+        lx[0] = ly[0] = 1
+    elif kind == "short":
+        lx = rng.integers(1, max(2, lp // 16), size=b)
+        ly = rng.integers(1, max(2, lp // 16), size=b)
+    else:
+        lx = rng.integers(max(1, lp // 2), lp + 1, size=b)
+        ly = rng.integers(max(1, lp // 2), lp + 1, size=b)
+        lx[0] = ly[-1] = lp
+    lx, ly = np.minimum(lx, lp), np.minimum(ly, lp)
+    X = np.full((b, lp), 20, np.int8)
+    Y = np.full((b, lp), 20, np.int8)
+    for k in range(b):
+        if kind == "repeat":
+            X[k, : lx[k]] = Y[k, : ly[k]] = rng.integers(0, 20)
+        else:
+            X[k, : lx[k]] = rng.integers(0, 20, lx[k])
+            Y[k, : ly[k]] = rng.integers(0, 20, ly[k])
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (X, Y, lx.astype(np.int32), ly.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,lp,b", [
+    ("empty", 64, 8), ("empty", 512, 6), ("ones", 1, 4), ("ones", 130, 8),
+    ("repeat", 129, 4), ("repeat", 512, 3), ("short", 512, 8),
+    ("short", 2049, 2)])
+def test_viterbi_kernel_walk_wraps_and_ties_on_card(cuda_device, kind, lp,
+                                                    b):
+    """The Viterbi kernel against its plain version where the walk leaves
+    the pair's rectangle (its indices wrap as torch's do) or equal scores
+    decide the direction bits: every returned tensor equal bit for bit,
+    and one launch counted."""
+    X, Y, lx, ly = _walk_batch(cuda_device, kind, lp, b, seed=lp * 23 + b)
     tabs = _viterbi_tables(cuda_device)
     n = tvk.viterbi_stats.launches
     got = tvk.viterbi_stats(X, Y, lx, ly, *tabs)
