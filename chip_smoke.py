@@ -72,14 +72,16 @@ sets its meshes itself.  Phases (any failure exits non-zero):
     (if not, each stage of its path runs twice to name the one that
     varies, and the run fails at its end, after the later phases);
 12. [long]: sweep and combine at B=1, Lp=8,320 (the long family's
-    length, past the short instances) against their plain versions, the
-    Viterbi kernel at B=2 there bit for bit (65 strips of 128 lanes in
-    five rounds of 13 warps) with its time and bound, and the
-    three kernels' times at B=1 at Lp=8,192 and 8,320; then `cli
-    base` on a
-    three-sequence family with one sequence of 8,250 residues (every
-    pair past 8,192 lanes or beside it): wall time, stage timers,
-    validity, launches;
+    length: the sweep's long instance, a cluster of 9 blocks, and
+    combine's cluster of 13) against their plain versions, the Viterbi
+    kernel at B=2 there bit for bit (65 strips of 128 lanes in five
+    rounds of 13 warps) with its time and bound, and the three kernels'
+    times at B=1 at Lp=8,192 (the sweep's short instance), 8,320 and
+    16,384 and at B=2 at 8,320, each beside its bound, its share of it
+    and the launch plan; then `cli base` on a three-sequence family with
+    one sequence of 8,250 residues (every pair past 8,192 lanes or beside
+    it): wall time, stage timers, validity, launches, and its MSA's hash,
+    which must be the one recorded (EXPECTED_HASHES["long"]);
 13. [qp-scaled]: MLPROBS_QP_EXACT=0, mode "qp" on both kernels with two
     models and the Vtml200 partition tables: the kernels against their
     plain versions at Lp=512/B=256 (dense, top-k, top-k with match
@@ -166,7 +168,7 @@ QPX_PARENT_MS = 6.381
 # arithmetic that reaches an alignment shows here
 EXPECTED_HASHES = {"main": "fd5a49930ffd7ec7", "pipeline": "8bdc5361a51c4197",
                    "np": "d49567685c2f8c21", "sector": "411a28b6fc0ff0cb",
-                   "qp_scaled": "feeec500eb94c85c"}
+                   "qp_scaled": "feeec500eb94c85c", "long": "8fc72362027e251b"}
 # the kernels each path runs: the pnp base (feature pass, posteriors),
 # the realigner (qpx hmm5 half, partition sweeps, MWT and top-k), both
 BASE_KERNELS = ("sweep", "combine", "viterbi")
@@ -1773,8 +1775,8 @@ def main() -> None:
     # ---- 12. [long]: past 8,192 lanes ---------------------------------------
     clock("long")
     # The check runs at Lp = 8,320, the length the long family below
-    # takes: past the short instances, so the sweep at 32 lanes a thread
-    # and combine's tiled DP, in each mode the path runs, and the Viterbi
+    # takes: past the short instances, so the sweep's long instance and
+    # combine's cluster instance, in each mode the path runs, and the Viterbi
     # kernel at B = 2, its strips in rounds past 2,048 lanes (the card tests
     # hold 8,192, the short instances' last length, and 8,320 as well;
     # here one length keeps the run near half its limit, the plain
@@ -1857,11 +1859,12 @@ def main() -> None:
         del fk, rk, post_k, vals_w, lanes_w
 
     long_check(8320)
-    # the kernels' times at B=1 beside their byte bounds
+    # the kernels' times beside their byte bounds, their shares of them
+    # and the plans the wrappers chose
     long_times = {}
-    for lp_ in (8192, 8320):
-        X, Y, LX, LY = batch(lp_, 1, seed=lp_)
-        z1 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for lp_, b_ in ((8192, 1), (8320, 1), (16384, 1), (8320, 2)):
+        X, Y, LX, LY = batch(lp_, b_, seed=lp_)
+        z1 = torch.zeros((b_,), dtype=torch.int32, device=dev)
         D_, W_ = 2 * lp_ + 1, lp_ + 1
         t_sw = cuda_ms(lambda: wk.sweep(X, Y, z1, z1, LX, LY, tabs_f,
                                         models=models), 3)
@@ -1870,20 +1873,26 @@ def main() -> None:
                                           with_matches=True, topk=16), 3)
         t_cd = cuda_ms(lambda: wk.combine(fk, rk, LX, LY, models), 3)
         t_vit = cuda_ms(lambda: vk.viterbi_stats(X, Y, LX, LY, *tabs_v), 3)
-        sw_b = bound(2 * lp_ + 16 + nm * (D_ * W_ + D_ + 1) * 4,
-                     sum(SWEEP_OPS[m] for m in models) * D_ * W_)
-        long_times[lp_] = {
-            "sweep_ms": t_sw, "sweep_bound_ms": sw_b[0],
+        sw_b = bound(2 * lp_ * b_ + 16 * b_
+                     + nm * (D_ * W_ * b_ + D_ * b_ + b_) * 4,
+                     sum(SWEEP_OPS[m] for m in models) * D_ * W_ * b_)[0]
+        cd_b = (2 * nm * (D_ * W_ * b_ + D_ * b_ + b_) * 4 + 8 * b_
+                + D_ * W_ * b_ * 4 + 4 * b_) / CARD_BYTES * 1e3
+        vt_b = bound(2 * lp_ * b_ + 8 * b_ + vk.TAB_SIZE * 4
+                     + D_ * W_ * b_ + 16 * b_ + 8 * lp_ * b_,
+                     VITERBI_OPS_CELL * D_ * W_ * b_)[0]
+        long_times[f"lp{lp_}_b{b_}"] = {
+            "sweep_ms": t_sw, "sweep_bound_ms": sw_b,
+            "sweep_share_of_bound": sw_b / t_sw,
+            "sweep_plan": wk.sweep_plan(lp_)._asdict(),
             "combine_topk16_matches_ms": t_cm, "combine_dense_ms": t_cd,
-            "combine_dense_bound_ms":
-                (2 * nm * (D_ * W_ + D_ + 1) * 4 + 8 + D_ * W_ * 4 + 4)
-                / CARD_BYTES * 1e3,
-            "viterbi_ms": t_vit,
-            "viterbi_bound_ms": bound(
-                2 * lp_ + 8 + vk.TAB_SIZE * 4 + D_ * W_ + 16 + 8 * lp_,
-                VITERBI_OPS_CELL * D_ * W_)[0]}
+            "combine_dense_bound_ms": cd_b,
+            "combine_dense_share_of_bound": cd_b / t_cd,
+            "combine_plan": wk.combine_plan(lp_, 16)._asdict(),
+            "viterbi_ms": t_vit, "viterbi_bound_ms": vt_b,
+            "viterbi_share_of_bound": vt_b / t_vit}
         del fk, rk
-    print("[long] mix B=1 times: " + json.dumps(long_times), flush=True)
+    print("[long] mix times: " + json.dumps(long_times), flush=True)
     # cli base on a family with one sequence past 8,192 residues
     lfam = synthetic_family(3, 8250, 8250, sub=0.3, indel=0.05, seed=82)
     lfam = [lfam[0], (lfam[1][0], lfam[1][1][2000:2700]),
@@ -1902,6 +1911,7 @@ def main() -> None:
     print("[long] " + json.dumps(rec, default=float), flush=True)
     if not valid_msa(lmsa, lfam) or unlaunched(llaunch, BASE_KERNELS):
         fail(f"the long family did not align on the card: {rec}")
+    check_hash("long", rec["content_hash"])
 
     # ---- 13. [qp-scaled]: MLPROBS_QP_EXACT=0 -------------------------------
     clock("qp-scaled")
@@ -1974,6 +1984,19 @@ def main() -> None:
         })
         if name == "combine":   # the qp route's MWT and top-k ([qp])
             kernels[-1]["given_kind"] = given
+        if name == "sweep":
+            kernels[-1]["design"] = (
+                "4 lanes a thread in registers, one barrier a diagonal; past "
+                "8,192 lanes a cluster of up to 16 blocks (4 or 8 lanes a "
+                "thread), the warps' maxima exchanged in distributed shared "
+                "memory")
+        if name == "combine":
+            kernels[-1]["design"] = (
+                "producer warps and MWT warps on an mbarrier ring; past "
+                "4,096 lanes a cluster of up to 16 blocks a pair, each "
+                "block its own lanes, the DP edge handed to the next block "
+                "through distributed shared memory, the blocks' top-k "
+                "lists merged after the last diagonal")
         if name == "viterbi":
             kernels[-1]["design"] = (
                 "redesigned for Hopper: states in registers, 4 lanes a "

@@ -109,10 +109,13 @@ def build_all(names=KERNELS) -> dict:
 
 
 _ARGTYPES = {
-    "sweep": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    # ... the launch plan's ints before the outputs (sweep) or after
+    # them (combine, then its top-k lists)
+    "sweep": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
               + [ctypes.c_void_p] * 4),
     "combine": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                + [ctypes.c_float] + [ctypes.c_void_p] * 6),
+                + [ctypes.c_float] + [ctypes.c_void_p] * 5
+                + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4),
     "viterbi": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                 + [ctypes.c_void_p] * 8),
     "qpx": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2

@@ -44,37 +44,45 @@
 //   scales loaded one turn ahead, shuffled to the warp), writes the
 //   posterior row into a ring of R rows in shared memory and, in the dense
 //   mode, straight to the output plane.
-// - G DP warps (one per 32 * LPT lanes; LPT = 16 up to Lp = 4,096, else
-//   32) run the MWT DP over the ring's rows in diagonal order, LPT
-//   contiguous lanes a thread: the j-1 neighbour is a register inside a
-//   thread, a shuffle between threads, and one shared slot per warp edge
-//   between DP warps, published by one named barrier of the DP warps a
-//   diagonal.  Up to Lp = 512 one DP warp holds the whole pair, and the
-//   chain has no barrier at all.
-// - Past Lp = 8,192 (sequences of more than 8,192 residues) the 8 DP
-//   warps walk the row in T tiles of 4,096 lanes, 16 lanes a thread in
-//   each: tile t of warp g holds lanes 1 + 16 * ((t * 8 + g) * 32 + l)
-//   onwards.  A thread keeps the DP state of its T tiles in local memory
-//   (the L1 and L2 caches) and brings one tile at a time into registers;
-//   the j-1 neighbour of a tile's first lane crosses warps, and from the
-//   last warp into the next tile, through one shared slot per chunk of
-//   512 lanes.  The diagonal still needs only d - 1 and d - 2, so the
-//   tiles of a diagonal run in any order, and one barrier a diagonal
-//   still publishes every edge.  The ring then takes all of a block's
-//   shared memory: 4 rows (so 4 producers) up to Lp = 12,288, 3 at
-//   Lp = 16,384.
+// - G DP warps (one per 512 lanes, 16 lanes a thread) run the MWT DP
+//   over the ring's rows in diagonal order, 16 contiguous lanes a thread:
+//   the j-1 neighbour is a register inside a thread, a shuffle between
+//   threads, and one shared slot per warp edge between DP warps, published
+//   by one named barrier of the DP warps a diagonal.  Up to Lp = 512 one
+//   DP warp holds the whole pair, and the chain has no barrier at all.
+// - Past Lp = 4,096 one block no longer keeps up: a pair runs on a
+//   cluster of up to 16 blocks (a non-portable cluster size, which the
+//   H100 places on one GPC), block r owning the contiguous lanes lo_r ..
+//   lo_r + span - 1, span = G * 32 * LPT with LPT = 4, 8 or 16 lanes a
+//   thread, so every DP state stays in registers up to 65,536 lanes.  Its
+//   producers compute only their block's cells of each diagonal into its
+//   own ring (no cell needs its neighbours), so the reads spread over the
+//   cluster's SMs, and its DP warps run the MWT over its lanes.  The j-1
+//   edge of block r crosses to block r+1 through that block's shared
+//   memory: an edge ring of XE slots, one a diagonal, with a count of the
+//   diagonals delivered (a release store by the sender, polled with
+//   acquire loads by the receiver) and one of the diagonals read, written
+//   back every XE / 2.  No diagonal waits for a cluster barrier: block r+1
+//   runs a hand-off behind block r, and only a full edge ring stops r.
+//   The launch plan (instance, blocks a cluster, DP warps, lanes a thread,
+//   producers, ring rows, shared bytes) comes from the wrapper
+//   (ops/kernels/wavefront_kernel.py `combine_plan`), and the launcher
+//   checks it against the layout below.
+//
 // The ring is the pipeline: a row is handed over by two mbarriers, `full`
 // (the producer's 32 lanes arrive after writing it) and `empty` (the DP
 // lanes arrive after reading it), so a producer runs up to R diagonals
-// ahead of the DP and waits only when the ring is full.  R (2 to 16 rows)
-// is chosen at launch so that two blocks fit an SM where they can, and a
-// block has no more producers than ring rows.
+// ahead of the DP and waits only when the ring is full.  R (1 to 16 rows)
+// is chosen in the plan so that two one-block instances fit an SM where
+// they can (a cluster's block takes an SM), and a block has no more
+// producers than ring rows.
 //
 // Alignment.  A row of W = Lp + 1 floats starts on a 4-byte boundary
 // only, so every global access is a plain 4-byte load or store, never a
 // vector or bulk copy, and nothing is read past a row's end.  In the
-// ring, lane j sits at index j + 3 of its row, so that a DP thread's
-// lanes 1 + LPT * t ... start on 16 bytes and are read as float4s.
+// ring, lane j sits at index j - lo + 4 of its row (lo: the block's first
+// DP lane, 1 in the one-block instance), so that a DP thread's lanes
+// lo + LPT * t ... start on 16 bytes and are read as float4s.
 //
 // Top-k with no block barrier.  The producer warp of a diagonal ranks its
 // own row: while it computes the row it compacts the lanes >= cutoff into
@@ -87,22 +95,29 @@
 // and a shuffle per candidate; with more, the warp takes the top k from
 // the ring row in k rounds of a warp-wide arg-max, in the same order, so
 // no bound on the count is assumed.  The posterior plane never reaches
-// device memory in this mode.
+// device memory in this mode.  In a cluster each block ranks its own
+// lanes so into a list of at most k entries in device memory; after the
+// last diagonal the cluster's warps take the diagonals in turn and rank
+// the lists of all blocks together by the same rule (one lane an entry up
+// to 32 entries in all, else a merge of the lists' heads).
 //
 // The GIVEN kind (the realigner's qp route, `mwt_topk` in
 // ops/kernels/wavefront_kernel.py): the only model, it reads a (D, B, W)
 // f32 posterior plane as it is, with no scales, RMS or clamp, and puts
-// its rows into the ring; the DP warps, the top-k and the tiled DP run on
-// them unchanged.  Over such a plane the MWT (the same adds and maxes,
-// --fmad=false) and the top-k (copies of the values) equal `mwt_skew` and
-// `topk_skew` bit for bit.  `topk_skew` ranks every lane of a row, lane 0
+// its rows into the ring; the DP warps and the top-k run on them
+// unchanged, in either instance.  Over such a plane the MWT (the same
+// adds and maxes, --fmad=false) and the top-k (copies of the values)
+// equal `mwt_skew` and `topk_skew` bit for bit.  `topk_skew` ranks every lane of a row, lane 0
 // too, so this kind ranks lane 0 as well.  The dense mode writes no
 // plane: the caller holds it; only the score (and the match counts).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -112,11 +127,8 @@ constexpr float TINY = 1e-38f;  // the plain version's floor for log2
 constexpr int MAX_DP_WARPS = 8;
 constexpr int MAX_PRODUCERS = 8;
 constexpr int MAX_RING = 16;
-// the tiled DP (Lp > MAX_DP_WARPS * 32 * 32): lanes a thread in a tile,
-// and tiles at most
-constexpr int TILE_LPT = 16;
-constexpr int MAX_TILES = 16;
-constexpr int MAX_CHUNKS = MAX_TILES * MAX_DP_WARPS;
+constexpr int MAX_CLUSTER = 16;  // blocks a pair in the cluster instance
+constexpr int XE = 32;           // a block edge's ring: diagonals in flight
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block can have
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
@@ -222,6 +234,27 @@ __device__ __forceinline__ void dp_sync(int n) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
 }
 
+// a count in shared memory that another block of the cluster writes
+__device__ __forceinline__ unsigned ld_acquire_cluster(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_cluster(unsigned* p, unsigned v) {
+  asm volatile("st.release.cluster.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// p in the shared memory of block `rank` of this cluster
+template <typename T>
+__device__ __forceinline__ T* at_rank(T* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+
 struct Args {
   const float *fwd, *fsc, *fl2t, *rev, *rsc, *rl2t;
   const int32_t *lx, *ly;
@@ -230,35 +263,51 @@ struct Args {
   float *post, *vals;
   int32_t* lanes;
   float *score, *nb;
+  // the cluster's top-k lists: (D, B, C) lists of kl values and lanes and
+  // their lengths
+  int kl;
+  float* tkv;
+  int32_t *tkl, *tkn;
+};
+
+// The lanes of one block: its pair b, its rank in the pair's cluster of
+// C blocks (0 of 1 in the one-block instance), its first DP lane lo, and
+// the lanes [pfirst, pend) its producers compute (lane 0 too in the GIVEN
+// kind's first block).
+struct Span {
+  int b, rank, C, lo, pfirst, pend;
 };
 
 // Shared memory, in this order: the ring (R rows of `ring_row` floats),
 // the barriers (full[R], empty[R]), the DP warps' edge slots
 // ([2][MAX_DP_WARPS] float2), the producers' top-k candidates
-// ([MAX_PRODUCERS][32] values, then as many lanes).
+// ([MAX_PRODUCERS][32] values, then as many lanes); in a cluster, the
+// edge ring from the block to the left (XE float2) and two counts: its
+// diagonals delivered, and the right block's diagonals read.
 __host__ __device__ inline int ring_row(int G, int lpt) {
   return G * 32 * lpt + 4;
 }
 
-__host__ __device__ inline size_t smem_bytes(int G, int lpt, int R) {
+__host__ __device__ inline size_t smem_bytes(int G, int lpt, int R, bool cl) {
   return (size_t)R * ring_row(G, lpt) * 4 + 2 * R * 8 +
-         2 * MAX_DP_WARPS * 8 + 2 * MAX_PRODUCERS * 32 * 4;
+         2 * MAX_DP_WARPS * 8 + 2 * MAX_PRODUCERS * 32 * 4 +
+         (cl ? XE * 8 + 16 : 0);
 }
 
 // The top k of a ring row (lane j at row[j]) into vrow / lrow, by one
 // warp in k rounds: each round takes the largest (value, lowest lane)
 // that comes after the last one taken, among the values >= cutoff, and
 // the first round with nothing left fills the remaining slots with zeros.
-// Lanes j0 .. W-1 are ranked.
-__device__ void select_topk(const float* row, int j0, int W, int k,
-                            float cutoff, float* vrow, int32_t* lrow) {
+// Lanes j0 .. jend-1 are ranked; returns the number of entries taken.
+__device__ int select_topk(const float* row, int j0, int jend, int k,
+                           float cutoff, float* vrow, int32_t* lrow) {
   const int l = threadIdx.x & 31;
   float pv = INFINITY;  // the last (value, lane) taken
   int pl = -1;
   for (int t = 0; t < k; ++t) {
     float bv = 0.f;
     int bl = 0x7fffffff;
-    for (int j = j0 + l; j < W; j += 32) {
+    for (int j = j0 + l; j < jend; j += 32) {
       const float v = row[j];
       const bool after = v < pv || (v == pv && j > pl);
       if (v >= cutoff && v > 0.f && after && v > bv) {
@@ -279,7 +328,7 @@ __device__ void select_topk(const float* row, int j0, int W, int k,
         vrow[q] = 0.f;
         lrow[q] = 0;
       }
-      return;
+      return t;
     }
     if (l == 0) {
       vrow[t] = bv;
@@ -288,6 +337,7 @@ __device__ void select_topk(const float* row, int j0, int W, int k,
     pv = bv;
     pl = bl;
   }
+  return k;
 }
 
 // Lane j's value v as a top-k candidate (c): compacted into the warp's
@@ -305,14 +355,14 @@ __device__ __forceinline__ void push_candidate(bool c, float v, int j,
   ncand += __popc(bal);
 }
 
-// The top k of diagonal d (its ring row from lane j0 on, its ncand
-// candidates) into the vals / lanes outputs, by the producer warp.
-__device__ void write_topk(const Args& a, int d, const float* row, int j0,
-                           int W, int ncand, const float* cand_v,
-                           const int* cand_l) {
+// The top k of a diagonal's lanes j0 .. jend-1 (its ring row, its ncand
+// candidates) into vrow / lrow, by the producer warp; returns the number
+// of entries written, min(ncand, k).
+__device__ int write_topk(float* vrow, int32_t* lrow, int k, float cutoff,
+                          const float* row, int j0, int jend, int ncand,
+                          const float* cand_v, const int* cand_l) {
   const int l = threadIdx.x & 31;
-  float* vrow = a.vals + ((size_t)d * a.B + blockIdx.x) * a.topk;
-  int32_t* lrow = a.lanes + ((size_t)d * a.B + blockIdx.x) * a.topk;
+  int n;
   __syncwarp();
   if (ncand <= 32) {
     // one lane a candidate: its rank among all of them
@@ -324,32 +374,56 @@ __device__ void write_topk(const Args& a, int d, const float* row, int j0,
       const int j2 = __shfl_sync(FULL_MASK, jl, i);
       rank += (v2 > v || (v2 == v && j2 < jl)) ? 1 : 0;
     }
-    if (l < ncand && rank < a.topk) {
+    if (l < ncand && rank < k) {
       vrow[rank] = v;
       lrow[rank] = jl;
     }
-    for (int q = ncand + l; q < a.topk; q += 32) {
+    for (int q = ncand + l; q < k; q += 32) {
       vrow[q] = 0.f;
       lrow[q] = 0;
     }
+    n = ncand < k ? ncand : k;
   } else {
-    select_topk(row, j0, W, a.topk, a.cutoff, vrow, lrow);
+    n = select_topk(row, j0, jend, k, cutoff, vrow, lrow);
   }
   __syncwarp();  // the list is this warp's again next turn
+  return n;
+}
+
+// Diagonal d's top k of the block's lanes (ring row `row`): straight to
+// the output in the one-block instance; into the block's list in a
+// cluster (merged after the last diagonal, `merge_topk`).
+template <bool CL>
+__device__ __forceinline__ void block_topk(const Args& a, const Span& sp,
+                                           int d, const float* row,
+                                           int ncand, const float* cand_v,
+                                           const int* cand_l) {
+  if constexpr (CL) {
+    const size_t li = ((size_t)d * a.B + sp.b) * sp.C + sp.rank;
+    const int n = write_topk(a.tkv + li * a.kl, a.tkl + li * a.kl, a.kl,
+                             a.cutoff, row, sp.pfirst, sp.pend, ncand,
+                             cand_v, cand_l);
+    if ((threadIdx.x & 31) == 0) a.tkn[li] = n;
+  } else {
+    const size_t oi = ((size_t)d * a.B + sp.b) * a.topk;
+    write_topk(a.vals + oi, a.lanes + oi, a.topk, a.cutoff, row, sp.pfirst,
+               sp.pend, ncand, cand_v, cand_l);
+  }
 }
 
 // Producer warp pw of P: the posterior rows of diagonals pw, pw + P, ...
 // A lane has UNROLL lanes' rows in flight: 16 (all of a row up to Lp =
 // 512, one round trip a diagonal) in the dense mode, 8 in the top-k mode,
-// whose candidate list would otherwise spill.
-template <int NM, bool TOPK>
-__device__ void produce(const Args& a, int pw, int P, int R, int rowf,
-                        float* ring, uint64_t* full, uint64_t* empty,
-                        float* cand_v, int* cand_l) {
+// whose candidate list would otherwise spill, and in a cluster's three
+// models (a block's row is short, and its DP warps need the registers).
+template <int NM, bool TOPK, bool CL>
+__device__ void produce(const Args& a, const Span& sp, int pw, int P, int R,
+                        int rowf, float* ring, uint64_t* full,
+                        uint64_t* empty, float* cand_v, int* cand_l) {
   const int l = threadIdx.x & 31;
   const int Lp = a.Lp, B = a.B, W = Lp + 1, D = 2 * Lp + 1;
-  const int b = blockIdx.x;
-  constexpr int UNROLL = TOPK ? 8 : 16;
+  const int b = sp.b;
+  constexpr int UNROLL = TOPK || (CL && NM == 3) ? 8 : 16;
   // lane m < NM: model m's total, and its scales one turn ahead
   float l2t = 0.f, sf = 0.f, sr = 0.f;
   if (l < NM) {
@@ -385,23 +459,25 @@ __device__ void produce(const Args& a, int pw, int P, int R, int rowf,
                         : frow[m];
     }
     float* out = TOPK ? nullptr : a.post + ((size_t)d * B + b) * W;
-    if (!TOPK && l == 0) out[0] = 0.f;  // lane 0 is outside the grid
-    float* row = ring + (size_t)s * rowf + 3;  // lane j at row[j]
+    // lane 0 is outside the grid
+    if (!TOPK && l == 0 && sp.rank == 0) out[0] = 0.f;
+    float* row = ring + (size_t)s * rowf + 4 - sp.lo;  // lane j at row[j]
     int ncand = 0;
-    // lanes 1 .. Lp, 32 * UNROLL at a time (j0 is the same in the warp)
-    for (int j0 = 1; j0 < W; j0 += 32 * UNROLL) {
+    // the block's lanes, 32 * UNROLL at a time (j0 is the same in the warp)
+    const int jend = sp.pend;
+    for (int j0 = sp.pfirst; j0 < jend; j0 += 32 * UNROLL) {
       float fv[UNROLL][NM], rv[UNROLL][NM];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int j = j0 + 32 * u + l;
 #pragma unroll
         for (int m = 0; m < NM; ++m) {
-          fv[u][m] = j < W ? frow[m][j] : 0.f;
-          rv[u][m] = has_rev && j < W ? rrow[m][-j] : 0.f;
+          fv[u][m] = j < jend ? frow[m][j] : 0.f;
+          rv[u][m] = has_rev && j < jend ? rrow[m][-j] : 0.f;
         }
       }
       // the DP has read the row this one overwrites
-      if (j0 == 1 && use > 0) mbar_wait(empty + s, (use - 1) & 1);
+      if (j0 == sp.pfirst && use > 0) mbar_wait(empty + s, (use - 1) & 1);
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int j = j0 + 32 * u + l;
@@ -417,16 +493,16 @@ __device__ void produce(const Args& a, int pw, int P, int R, int rowf,
           acc = m == 0 ? p * p : acc + p * p;
         }
         const float post = sqrt_rn(div_models<NM>(acc));
-        if (j < W) {
+        if (j < jend) {
           row[j] = post;
           if constexpr (!TOPK) out[j] = post;
         }
         if constexpr (TOPK)
-          push_candidate(j < W && post >= a.cutoff && post > 0.f, post, j,
+          push_candidate(j < jend && post >= a.cutoff && post > 0.f, post, j,
                          ncand, cand_v, cand_l);
       }
     }
-    if constexpr (TOPK) write_topk(a, d, row, 1, W, ncand, cand_v, cand_l);
+    if constexpr (TOPK) block_topk<CL>(a, sp, d, row, ncand, cand_v, cand_l);
     mbar_arrive(full + s);  // each lane after its own writes
   }
 }
@@ -434,167 +510,63 @@ __device__ void produce(const Args& a, int pw, int P, int R, int rowf,
 // Producer warp pw of P, GIVEN kind: the rows of diagonals pw, pw + P, ...
 // of the plane in `fwd`, lanes 0 .. Lp, copied into the ring as they are;
 // every lane, lane 0 too, a top-k candidate.
-template <bool TOPK>
-__device__ void produce_given(const Args& a, int pw, int P, int R, int rowf,
-                              float* ring, uint64_t* full, uint64_t* empty,
-                              float* cand_v, int* cand_l) {
+template <bool TOPK, bool CL>
+__device__ void produce_given(const Args& a, const Span& sp, int pw, int P,
+                              int R, int rowf, float* ring, uint64_t* full,
+                              uint64_t* empty, float* cand_v, int* cand_l) {
   const int l = threadIdx.x & 31;
   const int Lp = a.Lp, B = a.B, W = Lp + 1, D = 2 * Lp + 1;
-  const int b = blockIdx.x;
+  const int b = sp.b;
   constexpr int UNROLL = 16;
+  const int jend = sp.pend;
   for (int d = pw; d < D; d += P) {
     const int s = d % R, use = d / R;
     const float* src = a.fwd + ((size_t)d * B + b) * W;
-    float* row = ring + (size_t)s * rowf + 3;  // lane j at row[j]
+    float* row = ring + (size_t)s * rowf + 4 - sp.lo;  // lane j at row[j]
     int ncand = 0;
-    for (int j0 = 0; j0 < W; j0 += 32 * UNROLL) {
+    for (int j0 = sp.pfirst; j0 < jend; j0 += 32 * UNROLL) {
       float v[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int j = j0 + 32 * u + l;
-        v[u] = j < W ? src[j] : 0.f;
+        v[u] = j < jend ? src[j] : 0.f;
       }
       // the DP has read the row this one overwrites
-      if (j0 == 0 && use > 0) mbar_wait(empty + s, (use - 1) & 1);
+      if (j0 == sp.pfirst && use > 0) mbar_wait(empty + s, (use - 1) & 1);
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int j = j0 + 32 * u + l;
-        if (j < W) row[j] = v[u];
+        if (j < jend) row[j] = v[u];
         if constexpr (TOPK)
-          push_candidate(j < W && v[u] >= a.cutoff && v[u] > 0.f, v[u], j,
+          push_candidate(j < jend && v[u] >= a.cutoff && v[u] > 0.f, v[u], j,
                          ncand, cand_v, cand_l);
       }
     }
-    if constexpr (TOPK) write_topk(a, d, row, 0, W, ncand, cand_v, cand_l);
+    if constexpr (TOPK) block_topk<CL>(a, sp, d, row, ncand, cand_v, cand_l);
     mbar_arrive(full + s);  // each lane after its own writes
   }
 }
 
-// The tiled DP (Lp > 8,192): DP warp g of G takes chunk c = t * G + g of
-// every tile t, lanes 1 + LPT * (32 * c + l) ... of its thread; the state
-// of the thread's T tiles lives in local memory between diagonals.  The
-// step is mwt's, cell for cell.
-template <int LPT, bool WM>
-__device__ void mwt_tiled(const Args& a, int g, int G, int T, int R,
-                          int rowf, const float* ring, uint64_t* full,
-                          uint64_t* empty, float2* edge) {
+// DP warp g of G: the MWT DP over the block's lanes sp.lo + 32 * LPT * g
+// ... of every diagonal, in order, from the ring.  CL: the lane left of
+// the block's first comes from the block to the left through this block's
+// edge ring xv (xflag[0]: the diagonals delivered), and the block's last
+// lane goes the same way to the block to the right (xflag[1]: the
+// diagonals that block has read, as it last wrote back).
+template <int LPT, bool WM, bool CL>
+__device__ void mwt(const Args& a, const Span& sp, int g, int G, int R,
+                    int rowf, const float* ring, uint64_t* full,
+                    uint64_t* empty, float2* edge, float2* xv,
+                    unsigned* xflag) {
   const int l = threadIdx.x & 31;
   const int Lp = a.Lp, W = Lp + 1, D = 2 * Lp + 1;
-  const int b = blockIdx.x;
+  const int b = sp.b;
   const int ly = a.ly[b], dterm = a.lx[b] + ly;
-  const int nc = T * G;  // chunks of 32 * LPT lanes
-  float S1[MAX_TILES][LPT], S2[MAX_TILES][LPT];
-  float N1[MAX_TILES][LPT], N2[MAX_TILES][LPT];
-  float L2[MAX_TILES], NL2[MAX_TILES];  // s, n of (d-2, j0-1) a tile
-  for (int t = 0; t < T; ++t) {
-#pragma unroll
-    for (int k = 0; k < LPT; ++k)
-      S1[t][k] = S2[t][k] = N1[t][k] = N2[t][k] = 0.f;
-    L2[t] = NL2[t] = 0.f;
-  }
-  float sc = 0.f, nbv = 0.f;
-  int s = 0;
-  unsigned ph = 0;
-  for (int d = 0; d < D; ++d) {
-    const int par = d & 1;
-    mbar_wait(full + s, ph);
-    const float* rowd = ring + (size_t)s * rowf + 3;
-#pragma unroll 1
-    for (int t = 0; t < T; ++t) {
-      const int c = t * G + g;
-      const int j0 = 1 + (c * 32 + l) * LPT;
-      float s1[LPT], s2[LPT], n1[LPT], n2[LPT], pv[LPT];
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        s1[k] = S1[t][k];
-        s2[k] = S2[t][k];
-        n1[k] = WM ? N1[t][k] : 0.f;
-        n2[k] = WM ? N2[t][k] : 0.f;
-      }
-      // (d-1, j0-1): from the thread to the left, or the chunk's edge slot
-      float l1 = __shfl_up_sync(FULL_MASK, s1[LPT - 1], 1);
-      float nl1 = 0.f;
-      if constexpr (WM) nl1 = __shfl_up_sync(FULL_MASK, n1[LPT - 1], 1);
-      if (l == 0) {
-        const float2 e = c == 0 ? make_float2(0.f, 0.f)
-                                : edge[(par ^ 1) * MAX_CHUNKS + c];
-        l1 = e.x;
-        nl1 = e.y;
-      }
-      const float l2 = L2[t], nl2 = NL2[t];
-      const float* row = rowd + j0;  // 16-byte aligned
-#pragma unroll
-      for (int q = 0; q < LPT / 4; ++q) {
-        const float4 x = reinterpret_cast<const float4*>(row)[q];
-        pv[4 * q] = x.x;
-        pv[4 * q + 1] = x.y;
-        pv[4 * q + 2] = x.z;
-        pv[4 * q + 3] = x.w;
-      }
-      float sn[LPT], nn[LPT];
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        const int j = j0 + k;
-        const float p = j < W ? pv[k] : 0.f;  // past W the row holds junk
-        const float left = k ? s1[k - 1] : l1;
-        const float pd = p + (k ? s2[k - 1] : l2);
-        const float up = s1[k];
-        const bool take_d = pd >= left && pd >= up;
-        const bool take_l = left >= up;
-        const bool boundary = d <= j;  // i = d - j <= 0 (j >= 1 here)
-        sn[k] = boundary ? 0.f : (take_d ? pd : (take_l ? left : up));
-        nn[k] = 0.f;
-        if constexpr (WM) {
-          const float nd = (k ? n2[k - 1] : nl2) + 1.f;
-          const float nlft = k ? n1[k - 1] : nl1;
-          nn[k] = boundary ? 0.f : (take_d ? nd : (take_l ? nlft : n1[k]));
-        }
-      }
-      if (d == dterm) {
-#pragma unroll
-        for (int k = 0; k < LPT; ++k)
-          if (j0 + k == ly) {
-            sc = sn[k];
-            nbv = nn[k];
-          }
-      }
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        S2[t][k] = s1[k];
-        S1[t][k] = sn[k];
-        if constexpr (WM) {
-          N2[t][k] = n1[k];
-          N1[t][k] = nn[k];
-        }
-      }
-      L2[t] = l1;
-      NL2[t] = nl1;
-      if (l == 31 && c + 1 < nc)
-        edge[par * MAX_CHUNKS + c + 1] = make_float2(sn[LPT - 1], nn[LPT - 1]);
-    }
-    mbar_arrive(empty + s);  // each lane after its own reads
-    s = s + 1 == R ? 0 : s + 1;
-    if (s == 0) ph ^= 1u;
-    dp_sync(32 * G);
-  }
-  const int q = ly >= 1 ? (ly - 1) / LPT : 0;  // thread-lane of lane ly
-  if ((q >> 5) % G == g && (q & 31) == l) {
-    a.score[b] = sc;
-    if (WM) a.nb[b] = nbv;
-  }
-}
-
-// DP warp g of G: the MWT DP over lanes 1 + 32 * LPT * g ... of every
-// diagonal, in order, from the ring.
-template <int LPT, bool WM>
-__device__ void mwt(const Args& a, int g, int G, int R, int rowf,
-                    const float* ring, uint64_t* full, uint64_t* empty,
-                    float2* edge) {
-  const int l = threadIdx.x & 31;
-  const int Lp = a.Lp, W = Lp + 1, D = 2 * Lp + 1;
-  const int b = blockIdx.x;
-  const int ly = a.ly[b], dterm = a.lx[b] + ly;
-  const int j0 = 1 + (g * 32 + l) * LPT;  // this thread's lanes
+  const int t = g * 32 + l;             // the block's DP thread
+  const int j0 = sp.lo + t * LPT;       // this thread's lanes
+  const bool recv = CL && sp.rank > 0 && t == 0;
+  const bool send = CL && sp.rank + 1 < sp.C && t == G * 32 - 1;
+  unsigned seen = 0;  // (send) the right block's diagonals read, last seen
   float s1[LPT], s2[LPT], n1[LPT], n2[LPT];
 #pragma unroll
   for (int k = 0; k < LPT; ++k) s1[k] = s2[k] = n1[k] = n2[k] = 0.f;
@@ -604,19 +576,29 @@ __device__ void mwt(const Args& a, int g, int G, int R, int rowf,
   unsigned ph = 0;  // ring row of diagonal d and its barrier phase parity
   for (int d = 0; d < D; ++d) {
     const int par = d & 1;
-    // (d-1, j0-1): from the thread to the left, or across a warp edge
+    // (d-1, j0-1): from the thread to the left, or across a warp edge, or
+    // (CL) from the block to the left
     float l1 = __shfl_up_sync(FULL_MASK, s1[LPT - 1], 1);
     float nl1 = 0.f;
     if constexpr (WM) nl1 = __shfl_up_sync(FULL_MASK, n1[LPT - 1], 1);
     if (l == 0) {
-      const float2 e = g == 0 ? make_float2(0.f, 0.f)
-                              : edge[(par ^ 1) * MAX_DP_WARPS + g];
+      float2 e = g == 0 ? make_float2(0.f, 0.f)
+                        : edge[(par ^ 1) * MAX_DP_WARPS + g];
+      if constexpr (CL) {
+        if (recv && d > 0) {
+          while (ld_acquire_cluster(xflag) < (unsigned)d) {
+          }
+          e = xv[(d - 1) & (XE - 1)];
+          if ((d & (XE / 2 - 1)) == 0)
+            st_release_cluster(at_rank(xflag + 1, sp.rank - 1), (unsigned)d);
+        }
+      }
       l1 = e.x;
       nl1 = e.y;
     }
     float pv[LPT];
     mbar_wait(full + s, ph);
-    const float* row = ring + (size_t)s * rowf + 3 + j0;  // 16-byte aligned
+    const float* row = ring + (size_t)s * rowf + 4 - sp.lo + j0;  // 16 B
 #pragma unroll
     for (int q = 0; q < LPT / 4; ++q) {
       const float4 x = reinterpret_cast<const float4*>(row)[q];
@@ -668,6 +650,15 @@ __device__ void mwt(const Args& a, int g, int G, int R, int rowf,
     }
     l2 = l1;
     nl2 = nl1;
+    if constexpr (CL) {
+      if (send) {
+        // the slot of diagonal d last held d - XE: wait until it was read
+        while (seen + XE <= (unsigned)d) seen = ld_acquire_cluster(xflag + 1);
+        *at_rank(xv + (d & (XE - 1)), sp.rank + 1) =
+            make_float2(sn[LPT - 1], nn[LPT - 1]);
+        st_release_cluster(at_rank(xflag, sp.rank + 1), (unsigned)d + 1);
+      }
+    }
     if (G > 1) {
       if (l == 31 && g + 1 < G)
         edge[par * MAX_DP_WARPS + g + 1] =
@@ -676,57 +667,189 @@ __device__ void mwt(const Args& a, int g, int G, int R, int rowf,
     }
   }
   const int owner = ly >= 1 ? (ly - 1) / LPT : 0;  // thread of lane ly
-  if (g * 32 + l == owner) {
+  if (sp.rank * G * 32 + t == owner) {
     a.score[b] = sc;
     if (WM) a.nb[b] = nbv;
   }
 }
 
+// The cluster's top-k, after its last diagonal: warp gw of nw takes the
+// diagonals gw, gw + nw, ... and ranks the C blocks' lists of each by the
+// top-k order.  Up to 32 entries in all, one lane an entry (as
+// write_topk); more, a merge of the lists' heads, lane r holding list r's
+// best entry not taken yet.
+__device__ void merge_topk(const Args& a, const Span& sp, int gw, int nw) {
+  const int l = threadIdx.x & 31;
+  const int D = 2 * a.Lp + 1, C = sp.C, kl = a.kl, k = a.topk;
+  for (int d = gw; d < D; d += nw) {
+    const size_t base = ((size_t)d * a.B + sp.b) * C;  // block 0's list
+    float* vrow = a.vals + ((size_t)d * a.B + sp.b) * k;
+    int32_t* lrow = a.lanes + ((size_t)d * a.B + sp.b) * k;
+    const int n = l < C ? __ldcg(a.tkn + base + l) : 0;
+    int inc = n;  // entries in lists 0 .. l
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(FULL_MASK, inc, o);
+      if (l >= o) inc += v;
+    }
+    const int N = __shfl_sync(FULL_MASK, inc, 31);
+    if (N <= 32) {
+      // lane l takes entry l: list r, where lists 0 .. r-1 hold `start`
+      int r = 0, start = 0;
+      for (int q = 0; q < C; ++q) {
+        const int e = __shfl_sync(FULL_MASK, inc, q);
+        if (l >= e) {
+          r = q + 1;
+          start = e;
+        }
+      }
+      float v = 0.f;
+      int jl = 0;
+      if (l < N) {
+        const size_t at = (base + r) * kl + (l - start);
+        v = __ldcg(a.tkv + at);
+        jl = __ldcg(a.tkl + at);
+      }
+      int rank = 0;
+      for (int i = 0; i < N; ++i) {
+        const float v2 = __shfl_sync(FULL_MASK, v, i);
+        const int j2 = __shfl_sync(FULL_MASK, jl, i);
+        rank += (v2 > v || (v2 == v && j2 < jl)) ? 1 : 0;
+      }
+      if (l < N && rank < k) {
+        vrow[rank] = v;
+        lrow[rank] = jl;
+      }
+      for (int q = N + l; q < k; q += 32) {
+        vrow[q] = 0.f;
+        lrow[q] = 0;
+      }
+    } else {
+      int pos = 0;
+      float hv = -1.f;  // list l's head (-1: none left; entries are > 0)
+      int hl = 0x7fffffff;
+      auto head = [&]() {
+        hv = -1.f;
+        hl = 0x7fffffff;
+        if (l < C && pos < n) {
+          const size_t at = (base + l) * kl + pos;
+          hv = __ldcg(a.tkv + at);
+          hl = __ldcg(a.tkl + at);
+        }
+      };
+      head();
+      int t = 0;
+      for (; t < k; ++t) {
+        float bv = hv;
+        int bl = hl, br = l;
+        for (int o = 16; o > 0; o >>= 1) {
+          const float ov = __shfl_xor_sync(FULL_MASK, bv, o);
+          const int ol = __shfl_xor_sync(FULL_MASK, bl, o);
+          const int orr = __shfl_xor_sync(FULL_MASK, br, o);
+          if (ov > bv || (ov == bv && ol < bl)) {
+            bv = ov;
+            bl = ol;
+            br = orr;
+          }
+        }
+        if (!(bv > 0.f)) break;
+        if (l == 0) {
+          vrow[t] = bv;
+          lrow[t] = bl;
+        }
+        if (l == br) {
+          ++pos;
+          head();
+        }
+      }
+      for (int q = t + l; q < k; q += 32) {
+        vrow[q] = 0.f;
+        lrow[q] = 0;
+      }
+    }
+  }
+}
+
+// threads a block at most: 384 for a cluster's 16 lanes a thread, which
+// need 168 registers
+__host__ __device__ constexpr int max_threads(int lpt, bool cl) {
+  return cl && lpt == 16 ? 384 : 512;
+}
+
 // warps 0 .. G-1 run the DP, the rest produce posterior rows (NM = 0:
-// the rows of a given plane); TILED: the DP in T tiles, its edge slots
-// after the candidate lists
-template <int NM, int LPT, bool TOPK, bool WM, bool TILED>
-__global__ void __launch_bounds__(512)
-    combine_kernel(const Args a, int G, int R, int T) {
+// the rows of a given plane); CL: block blockIdx.x % C of pair
+// blockIdx.x / C in a cluster of C blocks
+template <int NM, int LPT, bool TOPK, bool WM, bool CL>
+__device__ __forceinline__ void combine_block(const Args& a, int G, int R,
+                                              int C) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int rowf = ring_row(TILED ? G * T : G, LPT);
+  const int rowf = ring_row(G, LPT);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)R * rowf);
   uint64_t* empty = full + R;
   float2* edge = reinterpret_cast<float2*>(empty + R);
   float* cand_v = reinterpret_cast<float*>(edge + 2 * MAX_DP_WARPS);
   int* cand_l = reinterpret_cast<int*>(cand_v + MAX_PRODUCERS * 32);
+  float2* xv = reinterpret_cast<float2*>(cand_l + MAX_PRODUCERS * 32);
+  unsigned* xflag = reinterpret_cast<unsigned*>(xv + XE);
   const int warp = threadIdx.x >> 5;
-  const int P = (int)(blockDim.x >> 5) - G;
+  const int nwarps = (int)(blockDim.x >> 5);
+  const int P = nwarps - G;
+  const int span = G * 32 * LPT;
+  Span sp;
+  sp.C = CL ? C : 1;
+  sp.rank = CL ? (int)blockIdx.x % C : 0;
+  sp.b = CL ? (int)blockIdx.x / C : (int)blockIdx.x;
+  sp.lo = 1 + sp.rank * span;
+  sp.pfirst = (NM == 0 && sp.rank == 0) ? 0 : sp.lo;
+  sp.pend = CL ? min(a.Lp + 1, sp.lo + span) : a.Lp + 1;
   if (threadIdx.x == 0) {
     for (int s = 0; s < R; ++s) {
       mbar_init(full + s, 32);
       mbar_init(empty + s, 32 * G);
     }
+    if (CL) xflag[0] = xflag[1] = 0u;
     mbar_fence_init();
   }
-  float2* tedge = reinterpret_cast<float2*>(cand_l + MAX_PRODUCERS * 32);
   if (threadIdx.x < 2 * MAX_DP_WARPS)
     edge[threadIdx.x] = make_float2(0.f, 0.f);
-  if constexpr (TILED) {
-    for (int k = threadIdx.x; k < 2 * MAX_CHUNKS; k += blockDim.x)
-      tedge[k] = make_float2(0.f, 0.f);
-  }
-  __syncthreads();
+  // (CL: every block's counts are set before any block writes them)
+  if constexpr (CL)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
   if (warp < G) {
-    if constexpr (TILED)
-      mwt_tiled<LPT, WM>(a, warp, G, T, R, rowf, smem, full, empty, tedge);
-    else
-      mwt<LPT, WM>(a, warp, G, R, rowf, smem, full, empty, edge);
+    mwt<LPT, WM, CL>(a, sp, warp, G, R, rowf, smem, full, empty, edge, xv,
+                     xflag);
   } else {
     const int pw = warp - G;
     if constexpr (NM == 0)
-      produce_given<TOPK>(a, pw, P, R, rowf, smem, full, empty,
-                          cand_v + pw * 32, cand_l + pw * 32);
+      produce_given<TOPK, CL>(a, sp, pw, P, R, rowf, smem, full, empty,
+                              cand_v + pw * 32, cand_l + pw * 32);
     else
-      produce<NM, TOPK>(a, pw, P, R, rowf, smem, full, empty,
-                        cand_v + pw * 32, cand_l + pw * 32);
+      produce<NM, TOPK, CL>(a, sp, pw, P, R, rowf, smem, full, empty,
+                            cand_v + pw * 32, cand_l + pw * 32);
   }
+  if constexpr (CL) {
+    // every block's lists are written, and no block writes into another
+    // after this
+    cg::this_cluster().sync();
+    if constexpr (TOPK) merge_topk(a, sp, sp.rank * nwarps + warp, C * nwarps);
+  }
+}
+
+// one block a pair
+template <int NM, int LPT, bool TOPK, bool WM>
+__global__ void __launch_bounds__(512)
+    combine_kernel(const Args a, int G, int R, int C) {
+  combine_block<NM, LPT, TOPK, WM, false>(a, G, R, C);
+}
+
+// a cluster a pair: one block an SM, so a thread may take 65,536 / the
+// block's threads registers
+template <int NM, int LPT, bool TOPK, bool WM>
+__global__ void __launch_bounds__(max_threads(LPT, true), 1)
+    combine_cluster_kernel(const Args a, int G, int R, int C) {
+  combine_block<NM, LPT, TOPK, WM, true>(a, G, R, C);
 }
 
 int device_attr(cudaDeviceAttr attr) {
@@ -736,68 +859,95 @@ int device_attr(cudaDeviceAttr attr) {
   return v;
 }
 
-template <int NM, int LPT, bool TOPK, bool WM, bool TILED>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  // TILED: all DP warps, T tiles of them across the row
-  const int G = TILED ? MAX_DP_WARPS
-                      : std::max(1, (a.Lp + 32 * LPT - 1) / (32 * LPT));
-  const int T = TILED ? (a.Lp + G * 32 * LPT - 1) / (G * 32 * LPT) : 1;
-  if (T > MAX_TILES) return cudaErrorInvalidValue;
-  const int GT = G * T;
-  const size_t extra = TILED ? 2 * MAX_CHUNKS * 8 : 0;
-  // the ring's depth: two blocks an SM where they fit, else one
-  const int per_sm = device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
-  const int reserved = device_attr(cudaDevAttrReservedSharedMemoryPerBlock);
+// The wrapper's plan: G DP warps and P producers a block, R ring rows, C
+// blocks a pair (CL), `smem_plan` shared bytes, which must be this
+// layout's; the blocks' lanes must cover the pair's.
+template <int NM, int LPT, bool TOPK, bool WM, bool CL>
+cudaError_t launch(const Args& a, int G, int P, int R, int C, int smem_plan,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes(G, LPT, R, CL);
   const int optin = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
-  auto depth = [&](int budget) {
-    int R = MAX_RING;
-    const int least = TILED ? 1 : 2;
-    while (R > least && smem_bytes(GT, LPT, R) + extra > (size_t)budget) --R;
-    return R;
-  };
-  // (TILED: one block an SM, and as many rows, so producers, as fit)
-  int R = depth(TILED ? optin : per_sm / 2 - reserved);
-  if (smem_bytes(GT, LPT, R) + extra > (size_t)(per_sm / 2 - reserved))
-    R = depth(optin);
-  // no more producers than ring rows: a producer then waits only for the
-  // row of the diagonal R before its own, and an mbarrier's phase parity
-  // never aliases (it would if the DP could be two uses of a row behind)
-  const int P = std::min(G == 1 ? MAX_PRODUCERS - 1 : MAX_PRODUCERS, R);
-  const size_t smem = smem_bytes(GT, LPT, R) + extra;
-  if (smem > (size_t)std::min(optin, MAX_SMEM)) return cudaErrorInvalidValue;
-  auto kern = combine_kernel<NM, LPT, TOPK, WM, TILED>;
+  if (G < 1 || G > MAX_DP_WARPS || P < 1 || P > MAX_PRODUCERS || P > R ||
+      32 * (G + P) > max_threads(LPT, CL) ||
+      R > MAX_RING || C < 1 || C > (CL ? MAX_CLUSTER : 1) ||
+      (long)C * G * 32 * LPT < a.Lp || smem != (size_t)smem_plan ||
+      smem > (size_t)std::min(optin, MAX_SMEM))
+    return cudaErrorInvalidValue;
+  if (CL && TOPK &&
+      (a.kl < 1 || a.kl > a.topk || !a.tkv || !a.tkl || !a.tkn))
+    return cudaErrorInvalidValue;
+  void (*kern)(const Args, int, int, int);
+  if constexpr (CL)
+    kern = combine_cluster_kernel<NM, LPT, TOPK, WM>;
+  else
+    kern = combine_kernel<NM, LPT, TOPK, WM>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kern<<<a.B, 32 * (G + P), smem, stream>>>(a, G, R, T);
+  if (CL && C > 8) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B * C);
+  cfg.blockDim = dim3(32 * (G + P));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL ? 1 : 0;
+  if (CL) {
+    // a cluster the card cannot place would never start
+    int nclusters = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&nclusters, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (nclusters < 1) return cudaErrorInvalidConfiguration;
+  }
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a, G, R, C);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int NM, int LPT, bool TILED>
-cudaError_t launch_mode(const Args& a, bool with_matches,
-                        cudaStream_t stream) {
+template <int NM, int LPT, bool CL>
+cudaError_t launch_mode(const Args& a, bool with_matches, int G, int P,
+                        int R, int C, int smem, cudaStream_t st) {
   if (a.topk > 0)
-    return with_matches ? launch<NM, LPT, true, true, TILED>(a, stream)
-                        : launch<NM, LPT, true, false, TILED>(a, stream);
-  return with_matches ? launch<NM, LPT, false, true, TILED>(a, stream)
-                      : launch<NM, LPT, false, false, TILED>(a, stream);
+    return with_matches
+               ? launch<NM, LPT, true, true, CL>(a, G, P, R, C, smem, st)
+               : launch<NM, LPT, true, false, CL>(a, G, P, R, C, smem, st);
+  return with_matches
+             ? launch<NM, LPT, false, true, CL>(a, G, P, R, C, smem, st)
+             : launch<NM, LPT, false, false, CL>(a, G, P, R, C, smem, st);
 }
 
+// inst 0: one block a pair, 16 lanes a thread; inst 1: a cluster a pair,
+// 4, 8 or 16 lanes a thread
 template <int NM>
-cudaError_t launch_lpt(const Args& a, bool with_matches,
-                       cudaStream_t stream) {
-  // at most MAX_DP_WARPS DP warps; past their 32 lanes a thread, tiles
-  if (a.Lp <= MAX_DP_WARPS * 32 * 16)
-    return launch_mode<NM, 16, false>(a, with_matches, stream);
-  if (a.Lp <= MAX_DP_WARPS * 32 * 32)
-    return launch_mode<NM, 32, false>(a, with_matches, stream);
-  return launch_mode<NM, TILE_LPT, true>(a, with_matches, stream);
+cudaError_t launch_plan(const Args& a, bool wm, int inst, int lpt, int G,
+                        int P, int R, int C, int smem, cudaStream_t st) {
+  if (inst == 0 && lpt == 16)
+    return launch_mode<NM, 16, false>(a, wm, G, P, R, C, smem, st);
+  if (inst == 1 && lpt == 4)
+    return launch_mode<NM, 4, true>(a, wm, G, P, R, C, smem, st);
+  if (inst == 1 && lpt == 8)
+    return launch_mode<NM, 8, true>(a, wm, G, P, R, C, smem, st);
+  if (inst == 1 && lpt == 16)
+    return launch_mode<NM, 16, true>(a, wm, G, P, R, C, smem, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// plan: {instance, lanes a thread, DP warps, producers, ring rows, blocks
+// a pair, shared bytes, top-k list length}, from the wrapper's
+// `combine_plan`; tkv / tkl / tkn: the cluster's top-k lists
 extern "C" int combine_launch(const void* fwd, const void* fsc,
                               const void* fl2t, const void* rev,
                               const void* rsc, const void* rl2t,
@@ -805,7 +955,10 @@ extern "C" int combine_launch(const void* fwd, const void* fsc,
                               int k1, int k2, int B, int Lp,
                               int with_matches, int topk, float cutoff,
                               void* post, void* vals, void* lanes,
-                              void* score, void* nb, void* stream) {
+                              void* score, void* nb, int inst, int lpt,
+                              int G, int P, int R, int C, int smem, int kl,
+                              void* tkv, void* tkl, void* tkn,
+                              void* stream) {
   const int W = Lp + 1;
   if (Lp < 0 || nm < 1 || nm > 3 || B < 1 || topk < 0 || topk > W)
     return (int)cudaErrorInvalidValue;
@@ -817,12 +970,14 @@ extern "C" int combine_launch(const void* fwd, const void* fsc,
                   (const float*)rev, (const float*)rsc, (const float*)rl2t,
                   (const int32_t*)lx, (const int32_t*)ly, k0, k1, k2, B, Lp,
                   topk, cutoff, (float*)post, (float*)vals, (int32_t*)lanes,
-                  (float*)score, (float*)nb};
+                  (float*)score, (float*)nb, kl, (float*)tkv,
+                  (int32_t*)tkl, (int32_t*)tkn};
   const auto st = (cudaStream_t)stream;
   const bool wm = with_matches != 0;
-  cudaError_t err = given     ? launch_lpt<0>(a, wm, st)
-                    : nm == 1 ? launch_lpt<1>(a, wm, st)
-                    : nm == 2 ? launch_lpt<2>(a, wm, st)
-                              : launch_lpt<3>(a, wm, st);
+  cudaError_t err =
+      given     ? launch_plan<0>(a, wm, inst, lpt, G, P, R, C, smem, st)
+      : nm == 1 ? launch_plan<1>(a, wm, inst, lpt, G, P, R, C, smem, st)
+      : nm == 2 ? launch_plan<2>(a, wm, inst, lpt, G, P, R, C, smem, st)
+                : launch_plan<3>(a, wm, inst, lpt, G, P, R, C, smem, st);
   return (int)err;
 }

@@ -30,12 +30,21 @@
 // moves one lane right per diagonal, in registers); no global memory is
 // read inside the loop.
 //
-// Past 8,192 lanes (sequences of more than 8,192 residues) the same code
-// runs with LPT = 32, up to 65,536 lanes in 8 blocks: a thread then holds
-// more states than registers, and the spilled ones live in local memory
-// (the L1 and L2 caches).  The blocks' maxima meet in the cluster as
-// before, so the scales stay exact.  The x row in shared memory bounds
-// that instance at Lp of about 43,000.
+// Past 8,192 lanes (sequences of more than 8,192 residues) the long
+// instance spreads a (pair, model) over a cluster of up to 16 blocks (a
+// non-portable cluster size, which the H100 schedules on one GPC), still
+// with every state in registers: 4 lanes a thread in blocks of up to 256
+// threads to 16,384 lanes, 8 lanes a thread to 32,768, then blocks of up
+// to 384 threads (168 registers a thread) to 49,152.  Its launch plan (instance, blocks a cluster,
+// threads a block, shared bytes) comes from the wrapper
+// (ops/kernels/wavefront_kernel.py `sweep_plan`), and the launcher checks
+// it against the layout below.  Up to 256 warps then meet a diagonal: lane
+// r of each warp writes the warp's max into block r, and after the
+// barrier each warp reads all of them with one or two float4 loads a lane
+// and one integer redux, so the exchange costs the same at 16 blocks as
+// at 2.  A block keeps only the x row itself (Lp bytes), read with one
+// bounds test a lane, so its shared memory stays under 130 KB at 49,152
+// lanes.
 //
 // The critical path of one diagonal: the cells of the thread's lanes
 // (independent, so they run back to back); one warp max (a single integer
@@ -85,11 +94,16 @@ constexpr int TAB_SIZE = 544;
 
 constexpr int HMM5 = 0, LOCAL = 1, PARTITION = 2;
 
-// contiguous lanes per thread: LPT_SHORT up to 8,192 lanes, else LPT_LONG
-constexpr int LPT_SHORT = 4, LPT_LONG = 32;
+// the short instance: LPT_SHORT contiguous lanes per thread, blocks of up
+// to MAX_THREADS, clusters of up to MAX_CLUSTER blocks (8,192 lanes)
+constexpr int LPT_SHORT = 4;
 constexpr int MAX_THREADS = 256;  // per block: 1,024 lanes at LPT_SHORT
-constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int MAX_CLUSTER = 8;    // blocks per (pair, model), portable
+// the long instance: clusters of up to 16 blocks (non-portable), whose
+// warps' maxima take MAXR_LONG slots a parity
+constexpr int MAX_CLUSTER_LONG = 16;
+constexpr int MAX_LANES_LONG = 49152;
+constexpr int MAXR_LONG = 256;
 constexpr int RING = 64;          // local model: diagonals of row sums kept
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block can have
 
@@ -121,42 +135,47 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Launch shape for W lanes: lanes 1..W-1 split over `cl` blocks of `nt`
-// threads, LPT contiguous lanes each (`span` lanes a block); lane 0 rides
-// in thread 0 of block 0.
+// Launch shape: lanes 1..W-1 split over `cl` blocks of `nt` threads, LPT
+// contiguous lanes each (`span` = nt * LPT lanes a block); lane 0 rides in
+// thread 0 of block 0.  Computed by the wrapper (`sweep_plan`); the short
+// instance computes its own as well (`short_plan`), which the launcher
+// holds the wrapper's to.
 struct Plan {
   int cl, nt, span;
 };
 
-template <int LPT>
-__host__ __device__ inline Plan make_plan(int W) {
+__host__ __device__ inline Plan short_plan(int W) {
   const int lanes = W - 1;
-  int cl = (lanes + MAX_THREADS * LPT - 1) / (MAX_THREADS * LPT);
+  int cl = (lanes + MAX_THREADS * LPT_SHORT - 1) / (MAX_THREADS * LPT_SHORT);
   if (cl < 1) cl = 1;
   const int per = (lanes + cl - 1) / cl;
-  int nt = ((per + LPT - 1) / LPT + 31) / 32 * 32;
+  int nt = ((per + LPT_SHORT - 1) / LPT_SHORT + 31) / 32 * 32;
   if (nt < 32) nt = 32;
-  return {cl, nt, nt * LPT};
+  return {cl, nt, nt * LPT_SHORT};
 }
 
-// shared-memory layout, in floats; the x row (bytes) comes last
+// shared-memory layout, in floats; the x row (bytes) comes last.  MAXT:
+// threads a block at most; LONG: the long instance (maxima in MAXR_LONG
+// slots a parity, the x row as it is)
 struct Smem {
   int pm, pins, red, edge, ring_rs, ring_fs, stage, xs, total_bytes;
 };
 
-template <int LPT>
+template <int LPT, int MAXT, bool LONG>
 __host__ __device__ inline Smem smem_layout(int Lp, Plan p) {
   const int nw = p.nt / 32, R = p.cl * nw;
+  const int maxr = LONG ? MAXR_LONG : 64;
   Smem s;
   s.pm = 0;                              // 441 (+pad)
   s.pins = 448;                          // 42 (+pad), read as float2
-  s.red = 496;                           // [2][64] per-warp maxima
-  s.edge = s.red + 128;                  // [2][MAX_WARPS][8] edge states
-  s.ring_rs = s.edge + 2 * MAX_WARPS * 8;  // [RING][R] warp row sums
+  s.red = 496;                           // [2][maxr] per-warp maxima
+  s.edge = s.red + 2 * maxr;             // [2][MAXT / 32][8] edge states
+  s.ring_rs = s.edge + 2 * (MAXT / 32) * 8;  // [RING][R] warp row sums
   s.ring_fs = s.ring_rs + RING * R;      // [RING][2] (f, s) per diagonal
   s.stage = (s.ring_fs + 2 * RING + 3) / 4 * 4;  // [nw][32*LPT], 16 B
   s.xs = s.stage + nw * 32 * LPT;
-  s.total_bytes = s.xs * 4 + 3 * Lp + 2 + p.cl * p.span + 16;
+  s.total_bytes =
+      s.xs * 4 + (LONG ? (Lp + 15) / 16 * 16 : 3 * Lp + 2 + p.cl * p.span + 16);
   return s;
 }
 
@@ -324,7 +343,7 @@ __device__ __forceinline__ float* at_rank(float* p, int rank) {
     return p;
 }
 
-template <int KIND, bool EMIT, bool CLUSTER, int LPT>
+template <int KIND, bool EMIT, bool CLUSTER, int LPT, int MAXT, bool LONG>
 __device__ void sweep_one(const int8_t* __restrict__ X,
                           const int8_t* __restrict__ Y, int ox, int oy,
                           int lx, int ly, const float* __restrict__ tab,
@@ -339,7 +358,9 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
   const int nt = P.nt, tid = threadIdx.x;
   const int warp = tid >> 5, wl = tid & 31;
   const int nw = nt >> 5, R = P.cl * nw;
-  const Smem L = smem_layout<LPT>(Lp, P);
+  constexpr int MAXW = MAXT / 32;  // warps a block at most
+  constexpr int MAXR = LONG ? MAXR_LONG : 64;
+  const Smem L = smem_layout<LPT, MAXT, LONG>(Lp, P);
   float* pm = smem + L.pm;
   const float2* pins2 = reinterpret_cast<const float2*>(smem + L.pins);
   float* red = smem + L.red;
@@ -353,12 +374,17 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
 
   for (int k = tid; k < 441; k += nt) pm[k] = tab[TAB_PM + k];
   for (int k = tid; k < 42; k += nt) smem[L.pins + k] = tab[TAB_PINS + k];
-  for (int k = tid; k < 128; k += nt) red[k] = 0.f;
-  // xs[2Lp+1-d+j] = x_{d-j} (1-based), PAD outside the sequence
+  for (int k = tid; k < 2 * MAXR; k += nt) red[k] = 0.f;
   const int8_t* xrow = X + (size_t)b * Lp;
-  for (int k = tid; k < 3 * Lp + 2 + P.cl * P.span; k += nt) {
-    const int i = 2 * Lp + 1 - k;
-    xs[k] = (i >= 1 && i <= Lp) ? xrow[i - 1] : (int8_t)PAD;
+  if constexpr (LONG) {
+    // xs[i-1] = x_i; lanes test the bounds themselves
+    for (int k = tid; k < Lp; k += nt) xs[k] = xrow[k];
+  } else {
+    // xs[2Lp+1-d+j] = x_{d-j} (1-based), PAD outside the sequence
+    for (int k = tid; k < 3 * Lp + 2 + P.cl * P.span; k += nt) {
+      const int i = 2 * Lp + 1 - k;
+      xs[k] = (i >= 1 && i <= Lp) ? xrow[i - 1] : (int8_t)PAD;
+    }
   }
 
   Model<KIND> M;
@@ -394,9 +420,11 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
     c1y[k] = valid ? M.c1 : 0.f;
   }
   block_sync<CLUSTER>();
-  // the x classes of "diagonal -1"; each diagonal moves them a lane right
+  // the x classes of "diagonal -1" (all PAD); each diagonal moves them a
+  // lane right
 #pragma unroll
-  for (int k = 0; k < LPT; ++k) xc[k] = xs[2 * Lp + 2 + j0 + k];
+  for (int k = 0; k < LPT; ++k)
+    xc[k] = LONG ? (int)PAD : (int)xs[2 * Lp + 2 + j0 + k];
 
   const int dterm = ox + lx + oy + ly, jt = oy + ly;
   const int dinj = ox + oy + 1;  // hmm5's injection diagonals: dinj, dinj+1
@@ -414,7 +442,12 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
     const int8_t* xd = xs + (2 * Lp + 1 - d);
 #pragma unroll
     for (int k = LPT - 1; k > 0; --k) xc[k] = xc[k - 1];
-    xc[0] = xd[j0];
+    if constexpr (LONG) {
+      const int i = d - j0;  // x_i of lane j0, PAD outside 1..Lp
+      xc[0] = (unsigned)(i - 1) < (unsigned)Lp ? (int)xs[i - 1] : (int)PAD;
+    } else {
+      xc[0] = xd[j0];
+    }
 
     // the lanes of diagonal d inside the grid
     const int lo = KIND == LOCAL ? max(oy + 1, d - ox - lx)
@@ -484,7 +517,9 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
 #pragma unroll
     for (int s = 0; s < NS; ++s) nv0[s] = 0.f;
     if (lead) {
-      const int x0 = xd[0];
+      const int x0 = !LONG ? (int)xd[0]
+                     : (unsigned)(d - 1) < (unsigned)Lp ? (int)xs[d - 1]
+                                                        : (int)PAD;
       const float2 p = pins2[x0];
       const float em0 = pm[x0 * 21 + PAD];
       const bool full = KIND == HMM5        ? d == dinj && oy == 0
@@ -501,7 +536,7 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
       for (int s = 0; s < NS; ++s) mxb = max(mxb, __float_as_uint(nv0[s]));
       if constexpr (KIND == LOCAL) rs += nv0[0];
       // lane 0's unscaled states, for lane 1
-      float* dst = edge + par * MAX_WARPS * 8;
+      float* dst = edge + par * MAXW * 8;
 #pragma unroll
       for (int s = 0; s < NS; ++s) dst[s] = nv0[s];
     }
@@ -509,9 +544,9 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
     if (wl == 31) {
       float* dst = nullptr;
       if (warp + 1 < nw)
-        dst = edge + (par * MAX_WARPS + warp + 1) * 8;
+        dst = edge + (par * MAXW + warp + 1) * 8;
       else if (CLUSTER && rank + 1 < P.cl)
-        dst = at_rank<CLUSTER>(edge + par * MAX_WARPS * 8, rank + 1);
+        dst = at_rank<CLUSTER>(edge + par * MAXW * 8, rank + 1);
       if (dst != nullptr) {
 #pragma unroll
         for (int s = 0; s < NS; ++s) dst[s] = nv[LPT - 1][s];
@@ -522,7 +557,12 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
     for (int s = 0; s < NS; ++s)
       left[s] = __shfl_up_sync(0xffffffffu, nv[LPT - 1][s], 1);
     mxb = __reduce_max_sync(0xffffffffu, mxb);
-    if (wl == 0) {
+    if constexpr (LONG) {
+      // lane r hands the warp's max to block r
+      if (wl < P.cl)
+        *at_rank<CLUSTER>(red + par * MAXR + rank * nw + warp, wl) =
+            __uint_as_float(mxb);
+    } else if (wl == 0) {
       float* slot = red + par * 64 + rank * nw + warp;
       if constexpr (CLUSTER) {
         for (int r = 0; r < P.cl; ++r)
@@ -543,11 +583,21 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
     }
     block_sync<CLUSTER>();
 
-    const float4* r4 = reinterpret_cast<const float4*>(red + par * 64);
+    const float4* r4 = reinterpret_cast<const float4*>(red + par * MAXR);
     float mx = 0.f;
-    for (int q = 0; q < (R + 3) / 4; ++q) {
-      const float4 v = r4[q];
-      mx = fmaxf(mx, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+    if constexpr (LONG) {
+      // the warp reads the R maxima together (slots past R hold 0)
+      for (int q = wl; q < (R + 3) / 4; q += 32) {
+        const float4 v = r4[q];
+        mx = fmaxf(mx, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+      }
+      mx = __uint_as_float(
+          __reduce_max_sync(0xffffffffu, __float_as_uint(mx)));
+    } else {
+      for (int q = 0; q < (R + 3) / 4; ++q) {
+        const float4 v = r4[q];
+        mx = fmaxf(mx, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+      }
     }
     const float e = floor_log2(mx);
     const float f = exp2i(-e);
@@ -623,7 +673,7 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
     // each lane's left-neighbour sums, from the neighbour's scaled
     // states: in this thread; from the thread to the left (shuffled
     // above); across a warp edge from the edge slot
-    const float* es = edge + (par * MAX_WARPS + warp) * 8;
+    const float* es = edge + (par * MAXW + warp) * 8;
 #pragma unroll
     for (int k = LPT - 1; k > 0; --k) {
       a_cur[k] = a_next[k];
@@ -655,46 +705,90 @@ __device__ void sweep_one(const int8_t* __restrict__ X,
   if constexpr (CLUSTER) cg::this_cluster().sync();
 }
 
-template <bool EMIT, bool CLUSTER, int LPT>
-__global__ void __launch_bounds__(MAX_THREADS)
-    sweep_kernel(const int8_t* X, const int8_t* Y, const int32_t* ox,
-                 const int32_t* oy, const int32_t* lx, const int32_t* ly,
-                 const float* tabs, int k0, int k1, int k2, int B, int Lp,
-                 float* planes, float* scales, float* l2t) {
+template <bool EMIT, bool CLUSTER, int LPT, int MAXT, bool LONG>
+__device__ __forceinline__ void sweep_body(
+    const int8_t* X, const int8_t* Y, const int32_t* ox, const int32_t* oy,
+    const int32_t* lx, const int32_t* ly, const float* tabs, int k0, int k1,
+    int k2, int B, int Lp, Plan P, float* planes, float* scales, float* l2t) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Plan P = make_plan<LPT>(Lp + 1);
   const int rank = blockIdx.x % P.cl, b = blockIdx.x / P.cl;
   const int mi = blockIdx.y;
   const int kind = mi == 0 ? k0 : (mi == 1 ? k1 : k2);
   const float* tab = tabs + (size_t)mi * TAB_SIZE;
   if (kind == HMM5)
-    sweep_one<HMM5, EMIT, CLUSTER, LPT>(X, Y, ox[b], oy[b], lx[b], ly[b],
-                                        tab, B, Lp, b, mi, rank, P, planes,
-                                        scales, l2t, smem);
+    sweep_one<HMM5, EMIT, CLUSTER, LPT, MAXT, LONG>(
+        X, Y, ox[b], oy[b], lx[b], ly[b], tab, B, Lp, b, mi, rank, P, planes,
+        scales, l2t, smem);
   else if (kind == LOCAL)
-    sweep_one<LOCAL, EMIT, CLUSTER, LPT>(X, Y, ox[b], oy[b], lx[b], ly[b],
-                                         tab, B, Lp, b, mi, rank, P, planes,
-                                         scales, l2t, smem);
+    sweep_one<LOCAL, EMIT, CLUSTER, LPT, MAXT, LONG>(
+        X, Y, ox[b], oy[b], lx[b], ly[b], tab, B, Lp, b, mi, rank, P, planes,
+        scales, l2t, smem);
   else
-    sweep_one<PARTITION, EMIT, CLUSTER, LPT>(X, Y, ox[b], oy[b], lx[b],
-                                             ly[b], tab, B, Lp, b, mi, rank,
-                                             P, planes, scales, l2t, smem);
+    sweep_one<PARTITION, EMIT, CLUSTER, LPT, MAXT, LONG>(
+        X, Y, ox[b], oy[b], lx[b], ly[b], tab, B, Lp, b, mi, rank, P, planes,
+        scales, l2t, smem);
 }
 
-template <bool EMIT, bool CLUSTER, int LPT>
+// the short instance (its plan from Lp, as ever); the long one (its plan
+// from the wrapper, one block an SM, so the registers of a thread may reach
+// 65,536 / MAXT)
+template <bool EMIT, bool CLUSTER>
+__global__ void __launch_bounds__(MAX_THREADS)
+    sweep_kernel(const int8_t* X, const int8_t* Y, const int32_t* ox,
+                 const int32_t* oy, const int32_t* lx, const int32_t* ly,
+                 const float* tabs, int k0, int k1, int k2, int B, int Lp,
+                 float* planes, float* scales, float* l2t) {
+  sweep_body<EMIT, CLUSTER, LPT_SHORT, MAX_THREADS, false>(
+      X, Y, ox, oy, lx, ly, tabs, k0, k1, k2, B, Lp, short_plan(Lp + 1),
+      planes, scales, l2t);
+}
+
+template <bool EMIT, int LPT, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1)
+    sweep_long_kernel(const int8_t* X, const int8_t* Y, const int32_t* ox,
+                      const int32_t* oy, const int32_t* lx, const int32_t* ly,
+                      const float* tabs, int k0, int k1, int k2, int B,
+                      int Lp, Plan P, float* planes, float* scales,
+                      float* l2t) {
+  sweep_body<EMIT, true, LPT, MAXT, true>(X, Y, ox, oy, lx, ly, tabs, k0, k1,
+                                          k2, B, Lp, P, planes, scales, l2t);
+}
+
+template <bool EMIT, bool CLUSTER, int LPT, int MAXT, bool LONG>
 cudaError_t launch(const int8_t* X, const int8_t* Y, const int32_t* ox,
                    const int32_t* oy, const int32_t* lx, const int32_t* ly,
                    const float* tabs, int nm, int k0, int k1, int k2, int B,
-                   int Lp, float* planes, float* scales, float* l2t,
-                   cudaStream_t stream) {
-  const Plan P = make_plan<LPT>(Lp + 1);
-  const size_t smem = smem_layout<LPT>(Lp, P).total_bytes;
-  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
-  auto kern = sweep_kernel<EMIT, CLUSTER, LPT>;
+                   int Lp, Plan P, int smem_plan, float* planes,
+                   float* scales, float* l2t, cudaStream_t stream) {
+  // the wrapper's plan must cover the lanes in at most the instance's
+  // blocks and threads, with the shared bytes of this layout
+  const int max_cl = LONG ? MAX_CLUSTER_LONG : MAX_CLUSTER;
+  if (P.cl < 1 || P.cl > max_cl || (P.cl > 1) != CLUSTER || P.nt < 32 ||
+      P.nt > MAXT || P.nt % 32 != 0 || P.span != P.nt * LPT ||
+      (long)P.cl * P.span < Lp)
+    return cudaErrorInvalidValue;
+  if (!LONG) {
+    const Plan Q = short_plan(Lp + 1);
+    if (Q.cl != P.cl || Q.nt != P.nt) return cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_layout<LPT, MAXT, LONG>(Lp, P).total_bytes;
+  if (smem != (size_t)smem_plan || smem > (size_t)MAX_SMEM)
+    return cudaErrorInvalidValue;
+  auto kern = [] {
+    if constexpr (LONG)
+      return sweep_long_kernel<EMIT, LPT, MAXT>;
+    else
+      return sweep_kernel<EMIT, CLUSTER>;
+  }();
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (P.cl > 8) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
@@ -709,23 +803,53 @@ cudaError_t launch(const int8_t* X, const int8_t* Y, const int32_t* ox,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = CLUSTER ? 1 : 0;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, X, Y, ox, oy, lx, ly, tabs,
-                                       k0, k1, k2, B, Lp, planes, scales,
-                                       l2t);
+  if (LONG) {
+    // a cluster the card cannot place would never start
+    int nclusters = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&nclusters, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (nclusters < 1) return cudaErrorInvalidConfiguration;
+  }
+  cudaError_t err;
+  if constexpr (LONG)
+    err = cudaLaunchKernelEx(&cfg, kern, X, Y, ox, oy, lx, ly, tabs, k0, k1,
+                             k2, B, Lp, P, planes, scales, l2t);
+  else
+    err = cudaLaunchKernelEx(&cfg, kern, X, Y, ox, oy, lx, ly, tabs, k0, k1,
+                             k2, B, Lp, planes, scales, l2t);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// the long instance: always a cluster
+template <int LPT, int MAXT>
+cudaError_t launch_long(bool emit, const int8_t* X, const int8_t* Y,
+                        const int32_t* ox, const int32_t* oy,
+                        const int32_t* lx, const int32_t* ly,
+                        const float* tabs, int nm, int k0, int k1, int k2,
+                        int B, int Lp, Plan P, int smem, float* planes,
+                        float* scales, float* l2t, cudaStream_t st) {
+  return emit ? launch<true, true, LPT, MAXT, true>(
+                    X, Y, ox, oy, lx, ly, tabs, nm, k0, k1, k2, B, Lp, P,
+                    smem, planes, scales, l2t, st)
+              : launch<false, true, LPT, MAXT, true>(
+                    X, Y, ox, oy, lx, ly, tabs, nm, k0, k1, k2, B, Lp, P,
+                    smem, planes, scales, l2t, st);
+}
+
 }  // namespace
 
+// plan: {instance (0 short, 1 long), lanes a thread, threads a block at
+// most, blocks a cluster, threads a block, shared bytes}, from the
+// wrapper's `sweep_plan`
 extern "C" int sweep_launch(const void* X, const void* Y, const void* ox,
                             const void* oy, const void* lx, const void* ly,
                             const void* tabs, int nm, int k0, int k1, int k2,
-                            int B, int Lp, int emit_pre, void* planes,
+                            int B, int Lp, int emit_pre, int inst, int lpt,
+                            int maxt, int cl, int nt, int smem, void* planes,
                             void* scales, void* l2t, void* stream) {
-  const int W = Lp + 1;
-  if (Lp < 0 || W - 1 > MAX_CLUSTER * MAX_THREADS * LPT_LONG || nm < 1 ||
-      nm > 3 || B < 1 || B > 65535)
+  if (Lp < 0 || Lp > MAX_LANES_LONG || nm < 1 || nm > 3 || B < 1 ||
+      B > 65535)
     return (int)cudaErrorInvalidValue;
   auto* x = (const int8_t*)X;
   auto* y = (const int8_t*)Y;
@@ -738,29 +862,33 @@ extern "C" int sweep_launch(const void* X, const void* Y, const void* ox,
   auto* s = (float*)scales;
   auto* l = (float*)l2t;
   auto st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (W - 1 > MAX_CLUSTER * MAX_THREADS * LPT_SHORT) {
-    // past 8,192 lanes: always a cluster (8,192 lanes a block at most)
-    err = emit_pre ? launch<true, true, LPT_LONG>(x, y, a, c, e, g, t, nm, k0,
-                                                  k1, k2, B, Lp, p, s, l, st)
-                   : launch<false, true, LPT_LONG>(x, y, a, c, e, g, t, nm,
-                                                   k0, k1, k2, B, Lp, p, s, l,
-                                                   st);
-    return (int)err;
+  const Plan P = {cl, nt, nt * lpt};
+  cudaError_t err = cudaErrorInvalidValue;
+  if (inst == 0 && lpt == LPT_SHORT && maxt == MAX_THREADS) {
+    const bool cluster = cl > 1;
+    if (emit_pre)
+      err = cluster ? launch<true, true, LPT_SHORT, MAX_THREADS, false>(
+                          x, y, a, c, e, g, t, nm, k0, k1, k2, B, Lp, P, smem,
+                          p, s, l, st)
+                    : launch<true, false, LPT_SHORT, MAX_THREADS, false>(
+                          x, y, a, c, e, g, t, nm, k0, k1, k2, B, Lp, P, smem,
+                          p, s, l, st);
+    else
+      err = cluster ? launch<false, true, LPT_SHORT, MAX_THREADS, false>(
+                          x, y, a, c, e, g, t, nm, k0, k1, k2, B, Lp, P, smem,
+                          p, s, l, st)
+                    : launch<false, false, LPT_SHORT, MAX_THREADS, false>(
+                          x, y, a, c, e, g, t, nm, k0, k1, k2, B, Lp, P, smem,
+                          p, s, l, st);
+  } else if (inst == 1 && lpt == 4 && maxt == 256) {
+    err = launch_long<4, 256>(emit_pre, x, y, a, c, e, g, t, nm, k0, k1, k2,
+                              B, Lp, P, smem, p, s, l, st);
+  } else if (inst == 1 && lpt == 8 && maxt == 256) {
+    err = launch_long<8, 256>(emit_pre, x, y, a, c, e, g, t, nm, k0, k1, k2,
+                              B, Lp, P, smem, p, s, l, st);
+  } else if (inst == 1 && lpt == 8 && maxt == 384) {
+    err = launch_long<8, 384>(emit_pre, x, y, a, c, e, g, t, nm, k0, k1, k2,
+                              B, Lp, P, smem, p, s, l, st);
   }
-  const bool cluster = make_plan<LPT_SHORT>(W).cl > 1;
-  if (emit_pre)
-    err = cluster ? launch<true, true, LPT_SHORT>(x, y, a, c, e, g, t, nm, k0,
-                                                  k1, k2, B, Lp, p, s, l, st)
-                  : launch<true, false, LPT_SHORT>(x, y, a, c, e, g, t, nm,
-                                                   k0, k1, k2, B, Lp, p, s, l,
-                                                   st);
-  else
-    err = cluster ? launch<false, true, LPT_SHORT>(x, y, a, c, e, g, t, nm,
-                                                   k0, k1, k2, B, Lp, p, s, l,
-                                                   st)
-                  : launch<false, false, LPT_SHORT>(x, y, a, c, e, g, t, nm,
-                                                    k0, k1, k2, B, Lp, p, s,
-                                                    l, st);
   return (int)err;
 }

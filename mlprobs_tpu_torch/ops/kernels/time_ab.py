@@ -5,6 +5,9 @@ shape (Lp = 512, B = 256), for comparing two checkouts on one card.
         [--align N]
     python3 mlprobs_tpu_torch/ops/kernels/time_ab.py --root DIR --viterbi
         [--split-at REGEX] [--lanes 1,2,8] [--edit TAG:REGEX=>TEXT]
+    python3 mlprobs_tpu_torch/ops/kernels/time_ab.py --root DIR --long
+        [--shape 8320x1 --shape 16384x1 ...] [--long-family N]
+        [--crossover 2048,4096]
 
 DIR is the root of the checkout whose `mlprobs_tpu_torch` is timed (its
 kernels build there on first use).  Run two checkouts on one card, one
@@ -19,6 +22,19 @@ the 48-sequence smoke family of `chip_smoke.py`, after one warm-up run
 each: `cli align`'s pipeline (`run_pipeline`) on the default qpx route
 and with MLPROBS_QP_EXACT=0, then `base` (`align_family`, pnp) and `base
 -p 1`: wall seconds, the stage timers and the MSA's hash.
+
+With --long, only sweep and combine at each --shape LPxB (default
+8320x1, 16384x1, 8320x2; three models, random pairs, the first x of full
+length): the forward sweep, combine dense, with top-k 16 and match
+counts, and the GIVEN kind (`mwt_topk`, top-k 16 with match counts) on
+the dense plane, each time beside a digest of its outputs (two sums of
+their bits), so that two checkouts' outputs compare bit for bit; with
+--long-family N, N runs of `base` on chip_smoke.py's long family (one
+sequence of 8,250 residues), after one warm-up: wall seconds, stages and
+the MSA's hash; with --crossover LPS (a checkout with `combine_plan`),
+combine and the sweep at each Lp and B = 1 and 2 on the instance the plan
+picks and on the other one (a plan's crossover, `COMBINE_CLUSTER_FROM` /
+`SWEEP_LONG_FROM`, moved for the call).
 
 With --viterbi, only the feature pass's Viterbi kernel (`viterbi_stats`),
 at the main shape and at B = 1 and B = 2, Lp = 8,320 (the long family's
@@ -54,6 +70,14 @@ def main() -> None:
                     help="runs of the smoke family's pipeline a qp route")
     ap.add_argument("--viterbi", action="store_true",
                     help="time the Viterbi kernel alone, whole and forward")
+    ap.add_argument("--long", action="store_true",
+                    help="time sweep and combine alone at each --shape")
+    ap.add_argument("--shape", action="append", default=[],
+                    help="with --long: LPxB, e.g. 16384x1 (repeatable)")
+    ap.add_argument("--long-family", type=int, default=0,
+                    help="with --long: runs of base on the long family")
+    ap.add_argument("--crossover", default="",
+                    help="with --long: Lp list, each instance timed there")
     ap.add_argument("--split-at", default=r"^\s+// The walk:",
                     help="regex: the kernel source line the forward-only "
                          "build returns before")
@@ -85,6 +109,11 @@ def main() -> None:
     if args.viterbi:
         print(json.dumps({"root": root, "card": card,
                           **viterbi_times(X, Y, LX, LY, args)}), flush=True)
+        return
+    if args.long:
+        del X, Y, LX, LY
+        print(json.dumps({"root": root, "card": card,
+                          **long_times(args)}), flush=True)
         return
     zero = torch.zeros((b,), dtype=torch.int32, device=dev)
     tabs_f, tabs_r = pairwise._wf_tables("mix", 0.17, dev)
@@ -156,6 +185,158 @@ def cuda_times(fn, reps):
         e.synchronize()
         out.append(s.elapsed_time(e))
     return {"median_ms": statistics.median(out), "ms": out}
+
+
+def digest(t) -> list:
+    """Two sums of a tensor's bits (as int64, the second weighted by the
+    position mod 65,521): equal tensors give equal digests, and a tensor
+    that differs in any bit almost surely does not."""
+    import torch
+
+    bits = t.contiguous().view(-1).view(torch.int32)
+    total, weighted, step = 0, 0, 1 << 26
+    for a in range(0, bits.numel(), step):
+        x = bits[a:a + step].to(torch.int64)
+        w = torch.arange(a, a + x.numel(), device=x.device) % 65521 + 1
+        total += int(x.sum())
+        weighted += int((x * w).sum())
+    return [total, weighted]
+
+
+def long_times(args) -> dict:
+    """sweep and combine at each --shape, digests of their outputs; the
+    long family's `base` runs; each instance at the --crossover lengths."""
+    import torch
+
+    from mlprobs_tpu_torch.align import pairwise
+    from mlprobs_tpu_torch.ops.kernels import wavefront_kernel as wk
+
+    dev = torch.device("cuda")
+    models = ("hmm5", "partition", "local")
+    tabs_f, tabs_r = pairwise._wf_tables("mix", 0.17, dev)
+    reps = min(args.reps, 5)
+    out = {}
+    defaults = (getattr(wk, "SWEEP_LONG_FROM", None),
+                getattr(wk, "COMBINE_CLUSTER_FROM", None))
+
+    def plans(lp):
+        if not hasattr(wk, "combine_plan"):
+            return None
+        return {"sweep": list(wk.sweep_plan(lp)),
+                "combine": list(wk.combine_plan(lp, 16))}
+
+    def timed(fn):
+        # a plan an instance cannot take is refused before any launch
+        try:
+            return cuda_times(fn, reps)
+        except RuntimeError as e:
+            return {"not_launched": str(e)[:200]}
+
+    def shape(lp, b, digests=True):
+        X, Y, LX, LY = pair_batch(lp, b, lp + b, dev)
+        zero = torch.zeros((b,), dtype=torch.int32, device=dev)
+        rec = {"plans": plans(lp),
+               "sweep": timed(lambda: wk.sweep(
+                   X, Y, zero, zero, LX, LY, tabs_f, models=models))}
+        # the inputs of combine from the plans' own instances
+        s0 = getattr(wk, "SWEEP_LONG_FROM", None)
+        if s0 is not None:
+            wk.SWEEP_LONG_FROM = defaults[0]
+        fwd = wk.sweep(X, Y, zero, zero, LX, LY, tabs_f, models=models)
+        rev = wk.sweep(X.flip(1).contiguous(), Y.flip(1).contiguous(),
+                       (lp - LX).int(), (lp - LY).int(), LX, LY, tabs_r,
+                       models=models, emit_pre=True)
+        if s0 is not None:
+            wk.SWEEP_LONG_FROM = s0
+        rec["combine_dense"] = timed(lambda: wk.combine(
+            fwd, rev, LX, LY, models))
+        rec["combine_topk16_matches"] = timed(lambda: wk.combine(
+            fwd, rev, LX, LY, models, with_matches=True, topk=16))
+        c0 = getattr(wk, "COMBINE_CLUSTER_FROM", None)
+        if c0 is not None:
+            wk.COMBINE_CLUSTER_FROM = defaults[1]
+        post, score = wk.combine(fwd, rev, LX, LY, models)
+        if c0 is not None:
+            wk.COMBINE_CLUSTER_FROM = c0
+        rec["given_topk16_matches"] = timed(lambda: wk.mwt_topk(
+            post, LX, LY, with_matches=True, topk=16))
+        if digests:
+            dig = {}
+            for name, res in (("fwd", fwd), ("rev", rev)):
+                for m in models:
+                    for key in ("planes", "scales", "log2t"):
+                        dig[f"{name}_{key}_{m}"] = digest(res[key][m])
+            dig["post"], dig["score"] = digest(post), digest(score)
+            for name, got in (
+                    ("topk16_matches", wk.combine(
+                        fwd, rev, LX, LY, models, with_matches=True,
+                        topk=16)),
+                    ("given_topk16_matches", wk.mwt_topk(
+                        post, LX, LY, with_matches=True, topk=16))):
+                for k, t in zip(("vals", "lanes", "score", "nb"), got):
+                    dig[f"{name}_{k}"] = digest(t)
+            rec["digests"] = dig
+        del fwd, rev, post
+        torch.cuda.empty_cache()
+        return rec
+
+    for sh in args.shape or ["8320x1", "16384x1", "8320x2"]:
+        lp, b = (int(v) for v in sh.split("x"))
+        out[f"lp{lp}_b{b}"] = shape(lp, b)
+    if args.crossover and hasattr(wk, "combine_plan"):
+        cross = {}
+        for lp in (int(v) for v in args.crossover.split(",")):
+            for b in (1, 2):
+                got = {"picked": shape(lp, b, digests=False)}
+                c0, s0 = wk.COMBINE_CLUSTER_FROM, wk.SWEEP_LONG_FROM
+                # the other instance of each kernel (the one-block combine
+                # takes at most 4,096 lanes, the short sweep 8,192, the
+                # long sweep more than 1,024)
+                wk.COMBINE_CLUSTER_FROM = lp + 1 if lp >= c0 else 1
+                wk.SWEEP_LONG_FROM = lp + 1 if lp >= s0 else 1
+                try:
+                    got["other"] = shape(lp, b, digests=False)
+                finally:
+                    wk.COMBINE_CLUSTER_FROM, wk.SWEEP_LONG_FROM = c0, s0
+                cross[f"lp{lp}_b{b}"] = got
+        out["crossover"] = cross
+    if args.long_family:
+        out["long_family"] = long_family_runs(args.long_family)
+    return out
+
+
+def long_family_runs(n: int) -> dict:
+    """n runs of `base` (pnp) on chip_smoke.py's long family, after one
+    warm-up run: wall seconds, stage timers, hashes."""
+    import torch
+
+    from mlprobs_tpu_torch.align import aligner
+    from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
+    from mlprobs_tpu_torch.utils.synth import synthetic_family
+
+    os.environ["MLPROBS_MULTICHIP"] = "0"
+    fam = synthetic_family(3, 8250, 8250, sub=0.3, indel=0.05, seed=82)
+    fam = [fam[0], (fam[1][0], fam[1][1][2000:2700]),
+           (fam[2][0], fam[2][1][5000:5500])]
+
+    def run():
+        return aligner.align_family(fam, config="pnp",
+                                    device="cuda").content_hash()
+
+    run()
+    got = {"wall_s": [], "stages_s": [], "hashes": set()}
+    for _ in range(n):
+        STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got["hashes"].add(run())
+        torch.cuda.synchronize()
+        got["wall_s"].append(time.perf_counter() - t0)
+        got["stages_s"].append({k[5:]: v for k, v in STATS.to_dict().items()
+                                if k.startswith("time.")})
+    got["median_wall_s"] = statistics.median(got["wall_s"])
+    got["hashes"] = sorted(got["hashes"])
+    return got
 
 
 def variant_lib(tag: str, edit):

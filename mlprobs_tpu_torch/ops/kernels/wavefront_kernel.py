@@ -21,8 +21,15 @@ kernel does not take raises KernelArgumentError, a fault of the caller
 that no stage of the pipeline keeps a block for.  `sweep.launches` and
 `combine.launches` count the kernel launches (`mwt_topk`'s among
 combine's).
+
+`sweep_plan` and `combine_plan` compute each kernel's launch plan (which
+instance, blocks a pair, threads, lanes a thread, ring rows, shared
+bytes); the wrapper passes it to the launch, and the launcher checks it
+against its own shared-memory layout.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +45,141 @@ _TAB_PINS, _TAB_T, _TAB_INIT = 448, 496, 528
 _TAB_C1, _TAB_C2, _TAB_GO, _TAB_GE = 536, 537, 538, 539
 
 sweep_reference = wf.wavefront_forward
+
+# The H100's shared memory (bytes): a block's most, an SM's, and what the
+# card keeps of it for each block
+SMEM_BLOCK_MAX = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+MAX_CLUSTER = 16          # blocks a cluster (non-portable on the H100)
+SWEEP_MAX_LP = 49152      # the most lanes each kernel takes
+COMBINE_MAX_LP = 65536
+
+# sweep: the short instance (4 lanes a thread, blocks of up to 256
+# threads, clusters of up to 8) up to SWEEP_LONG_FROM - 1 lanes; past it
+# the long instance's tiers, (lanes a thread, threads a block at most),
+# each in clusters of up to 16 blocks
+SWEEP_LONG_FROM = 8193
+_SWEEP_LONG_TIERS = ((4, 256), (8, 256), (8, 384))
+
+
+class SweepPlan(NamedTuple):
+    instance: int   # 0 short, 1 long
+    lpt: int        # lanes a thread
+    maxt: int       # threads a block at most (the instance's bound)
+    blocks: int     # blocks a (pair, model), one cluster when > 1
+    threads: int    # threads a block
+    smem: int       # dynamic shared bytes a block
+
+    @property
+    def span(self) -> int:
+        """Lanes a block: block r owns lanes 1 + r * span onwards."""
+        return self.threads * self.lpt
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _sweep_smem(lp, lpt, maxt, long, blocks, threads) -> int:
+    # csrc/sweep.cu smem_layout, in floats, then the x row in bytes
+    nw = threads // 32
+    r = blocks * nw
+    red = 496
+    edge = red + 2 * (256 if long else 64)
+    ring_rs = edge + 2 * (maxt // 32) * 8
+    ring_fs = ring_rs + 64 * r
+    stage = (ring_fs + 2 * 64 + 3) // 4 * 4
+    xs = stage + nw * 32 * lpt
+    xrow = ((lp + 15) // 16 * 16 if long
+            else 3 * lp + 2 + blocks * threads * lpt + 16)
+    return xs * 4 + xrow
+
+
+def sweep_plan(lp: int) -> SweepPlan:
+    """The sweep kernel's launch for Lp = lp: lanes 1..lp split over
+    `blocks` blocks of `threads` threads, `lpt` contiguous lanes each."""
+    if not 0 <= lp <= SWEEP_MAX_LP:
+        raise KernelArgumentError(f"Lp {lp} outside [0, {SWEEP_MAX_LP}]")
+    if lp < SWEEP_LONG_FROM:
+        inst, lpt, maxt = 0, 4, 256
+    else:
+        inst = 1
+        lpt, maxt = next(t for t in _SWEEP_LONG_TIERS
+                         if lp <= MAX_CLUSTER * t[0] * t[1])
+    blocks = max(1, _ceil_div(lp, maxt * lpt))
+    threads = max(32, _ceil_div(_ceil_div(_ceil_div(lp, blocks), lpt), 32)
+                  * 32)
+    return SweepPlan(inst, lpt, maxt, blocks, threads,
+                     _sweep_smem(lp, lpt, maxt, inst == 1, blocks, threads))
+
+
+# combine: one block a pair, 16 lanes a thread, up to COMBINE_CLUSTER_FROM
+# - 1 lanes; past it a cluster a pair at the lanes a thread of the first
+# tier that holds Lp in 16 blocks of 8 DP warps
+COMBINE_CLUSTER_FROM = 4097
+_COMBINE_CLUSTER_LPT = (4, 8, 16)
+_MAX_DP_WARPS, _MAX_PRODUCERS, _MAX_RING, _XE = 8, 8, 16, 32
+
+
+class CombinePlan(NamedTuple):
+    instance: int   # 0 one block a pair, 1 a cluster a pair
+    lpt: int        # the DP's lanes a thread
+    dp_warps: int   # DP warps a block
+    producers: int  # producer warps a block
+    rows: int       # ring rows a block
+    blocks: int     # blocks a pair
+    smem: int       # dynamic shared bytes a block
+    list_len: int   # (cluster, top-k) entries of a block's top-k list
+
+    @property
+    def span(self) -> int:
+        """DP lanes a block: block r owns lanes 1 + r * span onwards."""
+        return self.dp_warps * 32 * self.lpt
+
+
+def _combine_smem(g, lpt, rows, cluster) -> int:
+    # csrc/combine.cu smem_bytes
+    return (rows * (g * 32 * lpt + 4) * 4 + 2 * rows * 8
+            + 2 * _MAX_DP_WARPS * 8 + 2 * _MAX_PRODUCERS * 32 * 4
+            + (_XE * 8 + 16 if cluster else 0))
+
+
+def combine_plan(lp: int, topk: int = 0) -> CombinePlan:
+    """The combine kernel's launch for Lp = lp (and `topk`, the length
+    of each block's list in a cluster)."""
+    if not 0 <= lp <= COMBINE_MAX_LP:
+        raise KernelArgumentError(f"Lp {lp} outside [0, {COMBINE_MAX_LP}]")
+
+    def depth(g, lpt, cluster, budget, least):
+        # the most ring rows, at most _MAX_RING, within budget; least
+        # whatever the budget
+        fixed = _combine_smem(g, lpt, 0, cluster)
+        per_row = _combine_smem(g, lpt, 1, cluster) - fixed
+        return max(least, min(_MAX_RING, (budget - fixed) // per_row))
+
+    if lp < COMBINE_CLUSTER_FROM:
+        lpt, blocks = 16, 1
+        g = max(1, _ceil_div(lp, 32 * lpt))
+        # the ring's depth: two blocks an SM where they fit, else one
+        half = SMEM_PER_SM // 2 - SMEM_RESERVED
+        rows = depth(g, lpt, False, half, 2)
+        if _combine_smem(g, lpt, rows, False) > half:
+            rows = depth(g, lpt, False, SMEM_BLOCK_MAX, 2)
+        # no more producers than ring rows
+        prod = min(_MAX_PRODUCERS - 1 if g == 1 else _MAX_PRODUCERS, rows)
+        return CombinePlan(0, lpt, g, prod, rows, 1,
+                           _combine_smem(g, lpt, rows, False), 0)
+    lpt = next(t for t in _COMBINE_CLUSTER_LPT
+               if lp <= MAX_CLUSTER * _MAX_DP_WARPS * 32 * t)
+    g = _ceil_div(lp, MAX_CLUSTER * 32 * lpt)
+    blocks = _ceil_div(lp, g * 32 * lpt)
+    rows = depth(g, lpt, True, SMEM_BLOCK_MAX, 1)
+    # at 16 lanes a thread at most 384 threads a block (168 registers)
+    prod = min(_MAX_PRODUCERS if lpt < 16 else 4, rows)
+    kl = min(topk, g * 32 * lpt + 1)
+    return CombinePlan(1, lpt, g, prod, rows, blocks,
+                       _combine_smem(g, lpt, rows, True), kl)
 
 
 def combine_reference(fwd, rev, lx, ly, models, with_matches=False,
@@ -115,6 +257,7 @@ def sweep(X, Y, ox, oy, lx, ly, tables, models=("hmm5",), emit_pre=False):
     check_arg("Y", Y, torch.int8, (B, Lp), dev)
     for nme, t in (("ox", ox), ("oy", oy), ("lx", lx), ("ly", ly)):
         check_arg(nme, t, torch.int32, (B,), dev)
+    plan = sweep_plan(Lp)
     tabs = pack_tables(tables, models, dev)
     planes = torch.empty((nm, D, B, W), dtype=torch.float32, device=dev)
     scales = torch.empty((nm, D, B), dtype=torch.float32, device=dev)
@@ -124,8 +267,8 @@ def sweep(X, Y, ox, oy, lx, ly, tables, models=("hmm5",), emit_pre=False):
         err = lib.sweep_launch(
             X.data_ptr(), Y.data_ptr(), ox.data_ptr(), oy.data_ptr(),
             lx.data_ptr(), ly.data_ptr(), tabs.data_ptr(), nm, *kinds, B,
-            Lp, int(bool(emit_pre)), planes.data_ptr(), scales.data_ptr(),
-            l2t.data_ptr(), stream,
+            Lp, int(bool(emit_pre)), *plan, planes.data_ptr(),
+            scales.data_ptr(), l2t.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
@@ -139,6 +282,17 @@ def sweep(X, Y, ox, oy, lx, ly, tables, models=("hmm5",), emit_pre=False):
 
 
 sweep.launches = 0
+
+
+def _topk_lists(plan, D, B, dev, topk):
+    """(values, lanes, lengths) of the cluster's per-block top-k lists,
+    or three Nones where the plan keeps none."""
+    if not (topk and plan.blocks > 1):
+        return None, None, None
+    shape = (D, B, plan.blocks, plan.list_len)
+    return (torch.empty(shape, dtype=torch.float32, device=dev),
+            torch.empty(shape, dtype=torch.int32, device=dev),
+            torch.empty(shape[:3], dtype=torch.int32, device=dev))
 
 
 def _stacked(res, models):
@@ -180,6 +334,8 @@ def combine(fwd, rev, lx, ly, models=("hmm5",), with_matches=False,
     check_arg("ly", ly, torch.int32, (B,), dev)
     if not 0 <= topk <= W:
         raise KernelArgumentError(f"topk {topk} outside [0, {W}]")
+    plan = combine_plan(Lp, topk)
+    lists = _topk_lists(plan, D, B, dev, topk)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     nb = torch.empty((B,), dtype=torch.float32, device=dev)
     if topk:
@@ -197,7 +353,8 @@ def combine(fwd, rev, lx, ly, models=("hmm5",), with_matches=False,
             rs.data_ptr(), rl.data_ptr(), lx.data_ptr(), ly.data_ptr(),
             nm, *kinds, B, Lp, int(bool(with_matches)), int(topk),
             float(cutoff), ptr(post), ptr(vals), ptr(lanes),
-            score.data_ptr(), nb.data_ptr(), stream,
+            score.data_ptr(), nb.data_ptr(), *plan,
+            *(ptr(t) for t in lists), stream,
         )
     if err != 0:
         raise RuntimeError(f"combine kernel launch failed: CUDA error {err}")
@@ -233,6 +390,8 @@ def mwt_topk(post, lx, ly, with_matches=False, topk=0, cutoff=0.01):
     if not 0 <= topk <= W:
         raise KernelArgumentError(f"topk {topk} outside [0, {W}]")
     D = 2 * Lp + 1
+    plan = combine_plan(Lp, topk)
+    lists = _topk_lists(plan, D, B, dev, topk)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     nb = torch.empty((B,), dtype=torch.float32, device=dev)
     vals = lanes = None
@@ -246,7 +405,8 @@ def mwt_topk(post, lx, ly, with_matches=False, topk=0, cutoff=0.01):
             1, GIVEN, 0, 0, B, Lp, int(bool(with_matches)), int(topk),
             float(cutoff), 0, 0 if vals is None else vals.data_ptr(),
             0 if lanes is None else lanes.data_ptr(), score.data_ptr(),
-            nb.data_ptr(), stream,
+            nb.data_ptr(), *plan,
+            *(0 if t is None else t.data_ptr() for t in lists), stream,
         )
     if err != 0:
         raise RuntimeError(f"combine kernel launch failed: CUDA error {err}")

@@ -12,6 +12,8 @@ tensor.  combine's GIVEN kind (`mwt_topk`) over a given plane: top-k
 values, scores and match counts bit-equal to `topk_skew` + `mwt_skew`,
 lanes equal wherever the value is positive.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -258,12 +260,12 @@ def _combine_vs_plain(fk, rk, lx, ly, models, topks=(1, 16), cutoff=0.01):
 @pytest.mark.parametrize("mode", list(MODEL_SETS))
 def test_combine_lane_edges_on_card(cuda_device, mode, lp, b):
     """combine against its plain version at the edges of its lane mapping
-    (a warp's lanes, 4, 8 and 16 lanes a thread, a ring too deep for
-    shared memory at Lp = 4,100), x or y of full length so the MWT
-    terminal sits on the last lane and the last diagonal: dense plane
-    within 2e-4 and exact zeros outside the grid, score rtol 1e-4 /
-    atol 1e-3, match counts exact, top-k 1 and 16 values within 1e-7 and
-    lanes equal wherever the value is positive."""
+    (a warp's lanes, 4, 8 and 16 lanes a thread, and at Lp = 4,100 past
+    the one-block design: a cluster of 11 blocks), x or y of full length
+    so the MWT terminal sits on the last lane and the last diagonal:
+    dense plane within 2e-4 and exact zeros outside the grid, score rtol
+    1e-4 / atol 1e-3, match counts exact, top-k 1 and 16 values within
+    1e-7 and lanes equal wherever the value is positive."""
     models = MODEL_SETS[mode]
     X, Y, lx, ly = _edge_batch(cuda_device, lp, b, seed=lp * 11 + b)
     tf, tr = tpw._wf_tables(mode, 0.17, cuda_device)
@@ -290,22 +292,38 @@ def test_combine_topk_ties_on_card(cuda_device, mode, cutoff):
     _combine_vs_plain(fk, rk, lx, lx.clone(), models, cutoff=cutoff)
 
 
+def _swap_xy(X, Y, lx, ly):
+    """The same pairs with x and y exchanged (y of full length, x
+    shorter)."""
+    return Y.contiguous(), X.contiguous(), ly.clone(), lx.clone()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,lp", [
-    ("mix", 8192), ("mix", 12288), ("mix", 16384),
-    ("qp", 8320), ("hmm5", 8320), ("local", 8320), ("partition", 8320),
+@pytest.mark.parametrize("mode,lp,b,swap", [
+    ("mix", 8192, 1, False), ("mix", 8193, 1, False),
+    ("mix", 12288, 1, False), ("mix", 16384, 1, False),
+    ("hmm5", 16385, 1, True), ("mix", 8320, 3, False),
+    ("qp", 8320, 1, False), ("qp", 8320, 1, True), ("hmm5", 16512, 2, False),
+    ("hmm5", 8320, 1, False), ("local", 8320, 1, False),
+    ("partition", 8320, 1, False),
 ])
-def test_kernels_past_8192_lanes_on_card(cuda_device, mode, lp):
-    """Both kernels at B = 1, x of full length and y shorter, at the
-    short instances' last length and past it (Lp = 8,192: the sweep's
-    cluster of 8 blocks at 4 lanes a thread, combine's 32 lanes a
-    thread; Lp = 8,320, 12,288 and 16,384: the sweep at 32 lanes a
-    thread, combine's DP in 3, 3 and 4 tiles): the sweep as in
-    test_sweep_cluster_edges_on_card; combine as in
+def test_kernels_past_8192_lanes_on_card(cuda_device, mode, lp, b, swap):
+    """Both kernels past the short instances' lengths, x of full length
+    and y shorter (swap: the reverse; B > 1: the first pair x full, the
+    last y full, several clusters at once): Lp = 8,192, the sweep's short
+    instance's last (a cluster of 8 at 4 lanes a thread), and 8,193, its
+    long instance's first (9 blocks); 16,384 and 16,385, the long
+    instance's last at 4 lanes a thread (16 blocks) and first at 8 (9);
+    combine on a cluster of 13 to 16 blocks throughout: the sweep as in
+    test_sweep_cluster_edges_on_card, combine as in
     test_combine_lane_edges_on_card."""
     models = MODEL_SETS[mode]
-    X, Y, lx, ly = (t[:1].contiguous() for t in _edge_batch(
-        cuda_device, lp, 2, seed=lp + len(models)))
+    X, Y, lx, ly = _edge_batch(cuda_device, lp, max(b, 2),
+                               seed=lp + len(models))
+    if b == 1:
+        X, Y, lx, ly = (t[:1].contiguous() for t in (X, Y, lx, ly))
+    if swap:
+        X, Y, lx, ly = _swap_xy(X, Y, lx, ly)
     tf, tr = tpw._wf_tables(mode, 0.17, cuda_device)
     fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
     fp, rp = _sweeps(twk.sweep_reference, X, Y, lx, ly, tf, tr, models)
@@ -315,19 +333,27 @@ def test_kernels_past_8192_lanes_on_card(cuda_device, mode, lp):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lp", [16512, 24704])
-def test_combine_ring_rows_on_card(cuda_device, lp):
-    """combine at B = 1 where its ring holds two rows (Lp = 16,512: the
-    tiled DP's row of 5 x 4,096 lanes, 81,936 bytes, leaves no room for a
-    third in the block's 232,448) and one row (Lp = 24,704: 7 tiles): mix,
-    dense with match counts against combine_reference on the same kernel
-    sweeps, then top-k 16 with match counts against topk_skew of the
-    kernel's dense plane, as _combine_vs_plain holds them.  At Lp =
-    24,704 the six f32 sweep planes are 29 GB."""
-    models = MODEL_SETS["mix"]
-    X, Y, lx, ly = (t[:1].contiguous() for t in _edge_batch(
-        cuda_device, lp, 2, seed=lp + 3))
-    tf, tr = tpw._wf_tables("mix", 0.17, cuda_device)
+@pytest.mark.parametrize("mode,lp,b", [
+    ("mix", 4096, 1), ("mix", 4097, 1), ("mix", 4097, 3), ("qp", 6144, 2),
+    ("mix", 16512, 1), ("mix", 24704, 1),
+])
+def test_combine_ring_rows_on_card(cuda_device, mode, lp, b):
+    """combine on both sides of its crossover (Lp = 4,096: one block a
+    pair, a ring of 6 rows; 4,097: a cluster of 11 blocks at 4 lanes a
+    thread, B = 1 and 3), on 16 blocks at B = 2 (Lp = 6,144), and at the
+    lengths where the one-block design's ring held two rows (16,512) and
+    one (24,704), now clusters at 8 lanes a thread.  Dense with match
+    counts against combine_reference on the same kernel sweeps, then
+    top-k 16 with match counts against topk_skew of the kernel's dense
+    plane, as _combine_vs_plain holds them.  At Lp = 24,704 the six f32
+    sweep planes are 29 GB; past it the plain version's posterior
+    temporaries would not fit, and test_combine_plan_edges_on_card holds
+    the DP and the top-k there."""
+    models = MODEL_SETS[mode]
+    X, Y, lx, ly = _edge_batch(cuda_device, lp, max(b, 2), seed=lp + 3)
+    if b == 1:
+        X, Y, lx, ly = (t[:1].contiguous() for t in (X, Y, lx, ly))
+    tf, tr = tpw._wf_tables(mode, 0.17, cuda_device)
     fk, rk = _sweeps(twk.sweep, X, Y, lx, ly, tf, tr, models)
     post, score, nb = twk.combine(fk, rk, lx, ly, models, with_matches=True)
     post_p, score_p, nb_p = twk.combine_reference(fk, rk, lx, ly, models,
@@ -336,7 +362,7 @@ def test_combine_ring_rows_on_card(cuda_device, lp):
     del post_p
     torch.testing.assert_close(score, score_p, rtol=1e-4, atol=1e-3)
     assert torch.equal(nb, nb_p)
-    vw, lw = twf.topk_skew(post, 16, 0.01)
+    vw, lw = _topk_rows(post, 16, 0.01)
     del post
     vals, lanes, sc_t, nb_t = twk.combine(fk, rk, lx, ly, models,
                                           with_matches=True, topk=16,
@@ -345,6 +371,97 @@ def test_combine_ring_rows_on_card(cuda_device, lp):
     assert torch.equal(lanes[vw > 0], lw[vw > 0])
     assert torch.equal(sc_t, score)
     assert torch.equal(nb_t, nb)
+
+
+def _topk_rows(post, k, cutoff, rows=2048):
+    """topk_skew of a plane, a slab of diagonals at a time (each row is
+    ranked alone; the sort of a whole long plane would need several times
+    its memory)."""
+    parts = [twf.topk_skew(post[a:a + rows], k, cutoff)
+             for a in range(0, post.shape[0], rows)]
+    return (torch.cat([v for v, _ in parts]),
+            torch.cat([ln for _, ln in parts]))
+
+
+def _plan_edges(plan, lo, hi, key):
+    """The first and the last Lp in [lo, hi] of each run of equal
+    key(plan(Lp)): each cluster size's first and last length, a tier of
+    lanes a thread at a time."""
+    edges, prev = [], None
+    for lp in range(lo, hi + 1):
+        k = key(plan(lp))
+        if k != prev:
+            if prev is not None:
+                edges.append(lp - 1)
+            edges.append(lp)
+            prev = k
+    edges.append(hi)
+    return sorted(set(edges))
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_edges():
+    return _plan_edges(twk.sweep_plan, twk.SWEEP_LONG_FROM - 1,
+                       twk.SWEEP_MAX_LP, lambda p: (p.lpt, p.maxt, p.blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def _combine_edges():
+    return _plan_edges(lambda lp: twk.combine_plan(lp, 16),
+                       twk.COMBINE_CLUSTER_FROM - 1, twk.COMBINE_MAX_LP,
+                       lambda p: (p.lpt, p.blocks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp", _sweep_edges())
+def test_sweep_plan_edges_on_card(cuda_device, lp, monkeypatch):
+    """The sweep at the first and the last length of each cluster size of
+    each tier of its long instance (and at the short instance's last),
+    up to the largest Lp it takes (49,152): one pair, x of full length,
+    the forward pass of one model (hmm5, local or partition by Lp mod 3;
+    the lane mapping does not depend on the model).  Up to 32,768 lanes
+    against the same sweep under another plan (the long instance at 8
+    lanes a thread in blocks of up to 384 threads; at 8,192 the long
+    instance against the short one), bit for bit: planes, scales and the
+    hmm5 and partition totals (the local total sums its rows in other
+    groups, so within _l2t_tol).  The top tier (8 lanes a thread, blocks
+    of up to 384 threads, past 32,768 lanes), which no other plan takes,
+    against the plain version: scales equal, planes within 1e-5 of their
+    row's max, the total within _l2t_tol.  At Lp = 49,152 the two planes
+    are 19.3 GB each."""
+    model = ("hmm5", "local", "partition")[lp % 3]
+    X, Y, lx, ly = (t[:1].contiguous() for t in _edge_batch(
+        cuda_device, lp, 2, seed=lp * 3 + 1))
+    tf, _ = tpw._wf_tables("mix", 0.17, cuda_device)
+    z = torch.zeros_like(lx)
+    plan = twk.sweep_plan(lp)
+    k = twk.sweep(X, Y, z, z, lx, ly, tf, models=(model,))
+    if plan.maxt == twk._SWEEP_LONG_TIERS[-1][1]:
+        p = twk.sweep_reference(X, Y, z, z, lx, ly, tf, models=(model,))
+        assert torch.equal(k["scales"][model], p["scales"][model])
+        for a in range(0, 2 * lp + 1, 4096):
+            kp = k["planes"][model][a:a + 4096]
+            pp = p["planes"][model][a:a + 4096]
+            rowmax = pp.abs().amax(dim=2).clamp(min=1e-38)
+            assert float(((kp - pp).abs().amax(dim=2) / rowmax).max()) \
+                <= 1e-5
+        dl = (k["log2t"][model] - p["log2t"][model]).abs()
+        assert bool((dl <= _l2t_tol(p["log2t"][model])).all())
+        return
+    if plan.instance == 0:
+        monkeypatch.setattr(twk, "SWEEP_LONG_FROM", 1)
+    else:
+        monkeypatch.setattr(twk, "_SWEEP_LONG_TIERS",
+                            twk._SWEEP_LONG_TIERS[-1:])
+    assert twk.sweep_plan(lp) != plan
+    p = twk.sweep(X, Y, z, z, lx, ly, tf, models=(model,))
+    assert torch.equal(k["scales"][model], p["scales"][model])
+    assert torch.equal(k["planes"][model], p["planes"][model])
+    if model == "local":
+        dl = (k["log2t"][model] - p["log2t"][model]).abs()
+        assert bool((dl <= _l2t_tol(p["log2t"][model])).all())
+    else:
+        assert torch.equal(k["log2t"][model], p["log2t"][model])
 
 
 @pytest.mark.cuda
@@ -595,12 +712,13 @@ def test_qpx_kernel_bit_equal_on_card(cuda_device, lp, b):
 
 
 def _given_lengths():
-    # combine's lane mapping (one DP warp up to Lp = 512, 16 then 32
-    # lanes a thread, the tiled DP past 8,192 lanes at B = 1) and the
-    # realigner's qp batch (Lp = 512, B = 256)
+    # combine's lane mapping (one DP warp up to Lp = 512, more DP warps of
+    # 16 lanes a thread up to 4,096, a cluster of blocks past it, several
+    # clusters at once at B = 2 and 3) and the realigner's qp batch
+    # (Lp = 512, B = 256)
     return [(1, 3), (2, 3), (63, 4), (64, 4), (65, 4), (512, 256),
-            (1023, 3), (2047, 2), (4097, 2), (8192, 1), (8320, 1),
-            (16384, 1)]
+            (1023, 3), (2047, 2), (4096, 2), (4097, 2), (4097, 3),
+            (8192, 1), (8320, 1), (8320, 2), (16384, 1)]
 
 
 def _given_plane(device, lp, b, seed, kind):
@@ -668,3 +786,51 @@ def test_combine_given_mode_on_card(cuda_device, lp, b, kind):
             if wm:
                 assert torch.equal(out[-1], nb_p)
     assert torch.equal(post, before)   # the plane is read, not written
+
+
+def _given_plane_rows(device, lp, seed, rows=1024):
+    """One pair's (D, 1, W) plane for combine's GIVEN kind, built a slab
+    of diagonals at a time (a long plane's random draws would not fit at
+    once): in the grid a few values a diagonal, each one of four levels
+    (ties), and lane 0 and every cell outside the grid 0; x of full
+    length, y a little shorter."""
+    lx = torch.tensor([lp], dtype=torch.int32, device=device)
+    ly = torch.tensor([max(1, lp - lp // 7)], dtype=torch.int32,
+                      device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    D, W = 2 * lp + 1, lp + 1
+    post = torch.empty((D, 1, W), dtype=torch.float32, device=device)
+    levels = torch.tensor([0.125, 0.25, 0.375, 0.5], device=device)
+    j = torch.arange(W, device=device)[None, None, :]
+    for a in range(0, D, rows):
+        n = min(rows, D - a)
+        d = torch.arange(a, a + n, device=device)[:, None, None]
+        grid = ((j >= 1) & (j <= ly[0]) & (d - j >= 1) & (d - j <= lx[0]))
+        level = levels[torch.randint(0, 4, (n, 1, W), generator=g,
+                                     device=device)]
+        keep = torch.rand((n, 1, W), generator=g, device=device) < 8.0 / W
+        post[a:a + n] = torch.where(grid & keep, level, 0.0)
+    return post, lx, ly
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp", _combine_edges())
+def test_combine_plan_edges_on_card(cuda_device, lp):
+    """combine's cluster instance at the first and the last length of
+    each cluster size of each tier (4, 8 and 16 lanes a thread), and the
+    one-block instance's last, up to the largest Lp it takes (65,536; a
+    34 GB plane): the GIVEN kind over one pair's plane of tied values,
+    top-k 16 with match counts and the score alone, against `mwt_skew`
+    and `topk_skew`: values, scores and match counts bit-equal, lanes
+    equal wherever the value is positive."""
+    post, lx, ly = _given_plane_rows(cuda_device, lp, lp * 31 + 7)
+    score_p, nb_p = twf.mwt_skew(post, lx, ly, with_matches=True)
+    vw, lw = _topk_rows(post, 16, 0.01)
+    vals, lanes, score, nb = twk.mwt_topk(post, lx, ly, with_matches=True,
+                                          topk=16, cutoff=0.01)
+    assert torch.equal(vals, vw)
+    assert torch.equal(lanes[vw > 0], lw[vw > 0])
+    assert torch.equal(score, score_p)
+    assert torch.equal(nb, nb_p)
+    del vals, lanes
+    assert torch.equal(twk.mwt_topk(post, lx, ly)[0], score_p)
