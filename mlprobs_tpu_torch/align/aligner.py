@@ -201,6 +201,7 @@ def _partition_dp_seqs(seqs: list[np.ndarray]) -> list[np.ndarray]:
     return [np.where(s == 20, 0, s).astype(s.dtype) for s in seqs]
 
 
+@STATS.span("align_family")
 def align_family(
     records: list[tuple[str, str]],
     config: str = "pnp",
@@ -244,7 +245,7 @@ def align_family(
     rng = GlibcRand(1)
 
     if stats is None:
-        with STATS.timer("features"):
+        with STATS.span("features"):
             stats = family_viterbi_stats(seqs, device=device)
     pid = stats.pid_class
     vbit = stats.variance_bit
@@ -259,7 +260,7 @@ def align_family(
                          device)
     tensor = None
     try:
-        with STATS.timer("posteriors"):
+        with STATS.span("posteriors"):
             tensor = pairwise.device_posterior_tensor(
                 dp_seqs, mode, leave, report=report, device=device
             )
@@ -272,24 +273,24 @@ def align_family(
     if tensor is not None:
         dist = tensor.dist
         try:
-            with STATS.timer("consistency"):
+            with STATS.span("consistency"):
                 posts = tensor.relax_and_extract(reps=2)
         except torch.cuda.OutOfMemoryError as e:
             report["consistency_downgrade"] = f"oom_relax: {e}"[:160]
             report["consistency_engine"] = "host"
-            with STATS.timer("consistency"):
+            with STATS.span("consistency"):
                 posts = cons.relax_sparse(
                     tensor.extract_csrs(), lengths, reps=2
                 )
         del tensor
     else:
-        with STATS.timer("posteriors"):
+        with STATS.span("posteriors"):
             posts, dist = posterior_stage(dp_seqs, mode, leave, device)
 
         def host_relax(p):
             return cons.relax_sparse(p, lengths, reps=2)
 
-        with STATS.timer("consistency"):
+        with STATS.span("consistency"):
             if pairwise.tensor_bytes_over_budget(dp_seqs, device):
                 posts = _sector_or_host(posts, lengths, report, device,
                                         host_relax, reps=2)
@@ -297,12 +298,11 @@ def align_family(
                 posts = host_relax(posts)
     if keep is not None:
         keep["posts"] = posts
-    with STATS.timer("merge"):
+    with STATS.span("merge"):
         root = treelib.upgma(dist, variance_id=vbit)
         out = progressive.compute_final_alignment(
             root, msa, posts, pid=pid, rng=rng, base_reps=100
         )
-    STATS.log_device_memory("pnp")
     return out
 
 
@@ -313,19 +313,18 @@ def _align_np(msa, seqs, dp_seqs, mode, leave, report, keep, device) -> MSA:
     the similar-set refinement, as the JAX package's aligner.py:303-327."""
     lengths = [len(s) for s in seqs]
     report["consistency_engine"] = "host"
-    with STATS.timer("posteriors"):
+    with STATS.span("posteriors"):
         posts, sim = posterior_stage(dp_seqs, mode, leave, device,
                                      similarity=True)
-    with STATS.timer("consistency"):
+    with STATS.span("consistency"):
         posts = cons.relax_sparse(posts, lengths, reps=2)
     if keep is not None:
         keep["posts"] = posts
-    with STATS.timer("graph"):
+    with STATS.span("graph"):
         out = graph_align(msa, posts, seqs, report=report)
-    with STATS.timer("np_refinement"):
+    with STATS.span("np_refinement"):
         out = np_refinement(out, posts, sim, GlibcRand(12345),
                             base_reps=100)
-    STATS.log_device_memory("np")
     return out
 
 
@@ -357,7 +356,7 @@ def _align_quickprobs(msa, seqs, report, observer, keep, device) -> MSA:
     report["mode"] = "qp"
     tensor = None
     try:
-        with STATS.timer("qp_posteriors"):
+        with STATS.span("qp_posteriors"):
             tensor = pairwise.device_posterior_tensor(
                 seqs, "qp", None, report=report, device=device
             )
@@ -367,7 +366,7 @@ def _align_quickprobs(msa, seqs, report, observer, keep, device) -> MSA:
     if tensor is not None:
         posts, dist = None, tensor.dist
     else:
-        with STATS.timer("qp_posteriors"):
+        with STATS.span("qp_posteriors"):
             posts, dist = posterior_stage(seqs, "qp", None, device)
     root = _QP_TREES[rcfg.tree_kind](dist, n)
     weights_f = cons.saturate_weights(
@@ -397,7 +396,7 @@ def _align_quickprobs(msa, seqs, report, observer, keep, device) -> MSA:
             final_cutoff=rcfg.consistency_final_cutoff,
         )
 
-    with STATS.timer("qp_consistency"):
+    with STATS.span("qp_consistency"):
         if tensor is not None and accept_all:
             try:
                 posts = tensor.relax_and_extract(
@@ -434,7 +433,7 @@ def _align_quickprobs(msa, seqs, report, observer, keep, device) -> MSA:
     # ConstructionStage::alignAlignments calls the parallel
     # buildPosterior (ParallelProbabilisticModel.cpp:301-445), which
     # plain-scatters w*v
-    with STATS.timer("qp_construction"):
+    with STATS.span("qp_construction"):
         out = progressive.process_tree(root, msa, posts, weights_c,
                                        cutoff_sub=0.0)
     iters = (rcfg.refinement_reps if n <= rcfg.refinement_threshold
@@ -442,7 +441,7 @@ def _align_quickprobs(msa, seqs, report, observer, keep, device) -> MSA:
     accept = {"acceptance_length": rcfg.acceptance_length,
               "acceptance_entropy": rcfg.acceptance_entropy,
               "observer": observer}
-    with STATS.timer("qp_refinement"):
+    with STATS.span("qp_refinement"):
         if rcfg.refinement_type == "random":
             out = refine_qp.random_refinement(
                 out, posts, weights_c, rng, iters, **accept)
@@ -456,5 +455,4 @@ def _align_quickprobs(msa, seqs, report, observer, keep, device) -> MSA:
                 column_fraction=rcfg.column_fraction,
                 ignore_terminal_gaps=rcfg.ignore_terminal_gaps,
                 num_seqs_total=n, **accept)
-    STATS.log_device_memory("quickprobs")
     return out

@@ -65,6 +65,7 @@ from mlprobs_tpu_torch.ops.viterbi import VIT_INIT
 from mlprobs_tpu_torch.parallel.mesh import (PairsMesh, gather, pairs_mesh,
                                              split_pairs)
 from mlprobs_tpu_torch.utils import device as devlib
+from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
 
 LEN_BUCKET = _CFG.engine.length_bucket
 TOPK = _CFG.engine.topk_per_row
@@ -454,15 +455,19 @@ class DevicePosteriorTensor:
         """Top-k extract the pair planes to host CSRs (the only
         device -> host crossing of the consistency path)."""
         dev = S.device
-        ii = torch.tensor([i for i, _ in self.pairs], device=dev)
-        jj = torch.tensor([j for _, j in self.pairs], device=dev)
-        vals, idx = _row_topk(S[ii, jj], EXTRACT_TOPK)
-        vals = vals.cpu().numpy()
-        idx = idx.cpu().numpy()
+        with STATS.sub("topk_copy"):
+            ii = torch.tensor([i for i, _ in self.pairs], device=dev)
+            jj = torch.tensor([j for _, j in self.pairs], device=dev)
+            vals, idx = _row_topk(S[ii, jj], EXTRACT_TOPK)
+            vals = vals.cpu().numpy()
+            idx = idx.cpu().numpy()
         posts = {}
-        for k, (i, j) in enumerate(self.pairs):
-            li, lj = self.seq_lens[i], self.seq_lens[j]
-            posts[(i, j)] = topk_to_csr(vals[k], idx[k], li, lj)
+        with STATS.sub("csr"):
+            for k, (i, j) in enumerate(self.pairs):
+                li, lj = self.seq_lens[i], self.seq_lens[j]
+                posts[(i, j)] = topk_to_csr(vals[k], idx[k], li, lj)
+            STATS.count("csr_entries",
+                        sum(p.nnz for p in posts.values()))
         return posts
 
     def extract_csrs(self) -> dict:
@@ -484,16 +489,20 @@ class DevicePosteriorTensor:
 
         n = self.S.shape[0]
         dev = self.S.device
-        sc, zs, w = cons.dense_relax_coeffs(
-            n, weights, selfweight=selfweight, selectivity=selectivity)
-        mesh = _mesh(dev)
-        if mesh is not None:
-            S = _relax_sharded(self.S, sc, zs, w, reps, mesh,
-                               final_cutoff=final_cutoff)
-        else:
-            sc, zs, w = (torch.from_numpy(a).to(dev) for a in (sc, zs, w))
-            S = cons.relax_dense_rounds(self.S, sc, zs, w, reps=reps,
-                                        final_cutoff=final_cutoff)
+        with STATS.sub("relax"):
+            sc, zs, w = cons.dense_relax_coeffs(
+                n, weights, selfweight=selfweight, selectivity=selectivity)
+            mesh = _mesh(dev)
+            if mesh is not None:
+                S = _relax_sharded(self.S, sc, zs, w, reps, mesh,
+                                   final_cutoff=final_cutoff)
+            else:
+                sc, zs, w = (torch.from_numpy(a).to(dev)
+                             for a in (sc, zs, w))
+                S = cons.relax_dense_rounds(self.S, sc, zs, w, reps=reps,
+                                            final_cutoff=final_cutoff)
+            STATS.count("pairs", len(self.pairs))
+            STATS.count("rounds", reps)
         return self._extract(S)
 
 
@@ -539,6 +548,14 @@ def tensor_bytes_over_budget(seqs: Sequence[np.ndarray], device) -> int:
     return nbytes if nbytes > budget else 0
 
 
+def _count_pairs(seqs, pairs) -> None:
+    """Count the pairs and their true cells (li * lj) of a posterior
+    call."""
+    STATS.count("pairs", len(pairs))
+    STATS.count("cells", sum(len(seqs[i]) * len(seqs[j])
+                             for i, j in pairs))
+
+
 def device_posterior_tensor(
     seqs: Sequence[np.ndarray],
     mode: str,
@@ -569,6 +586,7 @@ def device_posterior_tensor(
     lp = _bucket_len(max(len(s) for s in seqs))
 
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    _count_pairs(seqs, pairs)
     tables = functools.partial(_wf_tables, mode, leave_prob)
     mesh = _mesh(device)
     fn = (_qp_exact_dense_fn(tables, mesh) if mode == "qp" and _qp_exact()
@@ -628,6 +646,7 @@ def all_pairs_posteriors(
             return topk_diag_to_csr(vals[:, k], lanes[:, k], li, lj)
     for chunk, X, Y, LX, LY in iter_pair_batches(seqs, pairs, device,
                                                  mesh=mesh):
+        _count_pairs(seqs, chunk)
         out = [o.cpu().numpy() for o in run(X, Y, LX, LY)]
         vals, idx, score = out[:3]
         for k, (i, j) in enumerate(chunk):

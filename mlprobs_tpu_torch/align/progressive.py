@@ -19,13 +19,18 @@ from mlprobs_tpu_torch.align.tree import TreeNode, clustalw_weights
 from mlprobs_tpu_torch.core.msa import MSA, merge_alignments
 from mlprobs_tpu_torch.utils import host
 from mlprobs_tpu_torch.utils.crand import GlibcRand
+from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
 
 
 def mwt_path(post: np.ndarray) -> tuple[np.ndarray, float]:
     """Run the MWT DP on a dense posterior plane; return (path, score)."""
     lx, ly = post.shape
-    dirs, score = host.mwt_fill(np.asarray(post))
-    return tbk.mwt_traceback(dirs, lx, ly), score
+    with STATS.step("fill"):
+        dirs, score = host.mwt_fill(np.asarray(post))
+    STATS.count("fill_cells", lx * ly)
+    with STATS.step("traceback"):
+        path = tbk.mwt_traceback(dirs, lx, ly)
+    return path, score
 
 
 class PostPool:
@@ -37,6 +42,7 @@ class PostPool:
     (both orientations stored, each sorted by row, as the host scatter
     requires)."""
 
+    @STATS.sub("pool")
     def __init__(self, posts: dict[tuple[int, int], sp.csr_matrix]):
         rs, cs, vs = [], [], []
         self.index: dict[tuple[int, int], tuple[int, int]] = {}
@@ -78,6 +84,13 @@ def build_profile_posterior(
     """
     if pool is None:
         pool = PostPool(posts)
+    with STATS.step("scatter"):
+        return _scatter(group1, group2, weights, cutoff_sub, pool)
+
+
+def _scatter(group1: MSA, group2: MSA, weights, cutoff_sub: float,
+             pool: PostPool) -> np.ndarray:
+    """`build_profile_posterior`'s pair list and host scatter."""
     l1, l2 = group1.length, group2.length
     maps1 = [np.flatnonzero(group1.rows[a] >= 0).astype(np.int32)
              for a in range(group1.num_seqs)]
@@ -113,6 +126,7 @@ def build_profile_posterior(
                 if weights is not None else 1.0
             )
             k += 1
+    STATS.count("scatter_entries", int(lens[:k].sum()))
     return host.profile_posterior(
         l1, l2, starts[:k], lens[:k], a_idx[:k], b_idx[:k], wts[:k],
         pool.r, pool.c, pool.v,
@@ -137,6 +151,7 @@ def align_profiles(
                                    cutoff_sub=cutoff_sub, pool=pool)
     path, score = mwt_path(prof)
     merged = merge_alignments(group1, group2, path)
+    STATS.count("merges")
     return merged.sort_by_label(), score
 
 
@@ -209,7 +224,8 @@ def compute_final_alignment(
     n = seqs_msa.num_seqs
     weights = clustalw_weights(root, n)
     pool = PostPool(posts)
-    alignment = process_tree(root, seqs_msa, posts, weights, pool=pool)
+    with STATS.sub("tree"):
+        alignment = process_tree(root, seqs_msa, posts, weights, pool=pool)
 
     reps = base_reps
     if pid > 3 or n > 150:
@@ -219,20 +235,23 @@ def compute_final_alignment(
     ineffectiveness = 0
     i = 0
     iter_cutoff = 100
-    while i < reps:
-        alignment, flag = iterative_refinement_pass(
-            alignment, posts, rng, pool=pool
-        )
-        if n > 20:
-            if n < 200:
-                if flag > 0:
-                    if reps < 4 * n:
-                        reps += 1
-                    if flag == 1:
-                        ineffectiveness += 1
-                if ineffectiveness > 2 * n and i > iter_cutoff:
-                    break
-            elif n > 200:
-                reps = 10
-        i += 1
+    with STATS.sub("refine"):
+        while i < reps:
+            alignment, flag = iterative_refinement_pass(
+                alignment, posts, rng, pool=pool
+            )
+            STATS.count("passes")
+            STATS.count("passes_changed", int(flag == 0))
+            if n > 20:
+                if n < 200:
+                    if flag > 0:
+                        if reps < 4 * n:
+                            reps += 1
+                        if flag == 1:
+                            ineffectiveness += 1
+                    if ineffectiveness > 2 * n and i > iter_cutoff:
+                        break
+                elif n > 200:
+                    reps = 10
+            i += 1
     return alignment

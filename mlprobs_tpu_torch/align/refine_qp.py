@@ -23,6 +23,7 @@ from mlprobs_tpu_torch.align.progressive import (
 from mlprobs_tpu_torch.core.msa import MSA, merge_alignments
 from mlprobs_tpu_torch.utils import qprand
 from mlprobs_tpu_torch.utils.crand import GlibcRand
+from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
 
 # QuickProbs refinement realigns groups through the same parallel
 # buildPosterior as construction (RefinementBase::refine ->
@@ -172,6 +173,7 @@ def _realign_groups(alignment, g1, g2, posts, weights, cutoff,
     prof = build_profile_posterior(p1, p2, posts, weights,
                                    cutoff_sub=cutoff, pool=pool)
     path, _ = mwt_path(prof)
+    STATS.count("candidates")
     return merge_alignments(p1, p2, path).sort_by_label()
 
 
@@ -240,8 +242,10 @@ def column_refinement(
                                        cutoff_sub=cutoff, pool=pool)
         path, _ = mwt_path(prof)
         candidate = merge_alignments(p1, p2, path).sort_by_label()
+        STATS.count("candidates")
         if check_acceptance(sub, candidate, acceptance_length,
                             acceptance_entropy):
+            STATS.count("accepted")
             return candidate
         return sub
 
@@ -275,6 +279,7 @@ def random_refinement(
                                     cutoff, pool=pool)
         if check_acceptance(alignment, candidate, acceptance_length,
                             acceptance_entropy):
+            STATS.count("accepted")
             alignment = candidate
         if observer is not None:
             observer(alignment, it)
@@ -324,6 +329,7 @@ def tree_refinement(
                                     cutoff, pool=pool)
         if check_acceptance(alignment, candidate, acceptance_length,
                             acceptance_entropy):
+            STATS.count("accepted")
             alignment = candidate
         label_to_row = {int(l): r for r, l in enumerate(alignment.labels)}
         if observer is not None:

@@ -21,10 +21,40 @@ alignment (the script.py role).  All three run on the card; pass
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
 from pathlib import Path
+
+
+@contextlib.contextmanager
+def _span_records(verbose: bool):
+    """The registry's span records of the block, kept only while
+    `verbose` (-v)."""
+    from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
+
+    records: list = []
+    if verbose:
+        STATS.add_sink(records.append)
+    try:
+        yield records
+    finally:
+        if verbose:
+            STATS.remove_sink(records.append)
+
+
+def _verbose_line(records: list, **fields) -> str:
+    """-v's JSON line: `fields`, the span summary (per key: calls, total
+    and self seconds, counters) and, on a card, the allocator's peak."""
+    import torch
+
+    from mlprobs_tpu_torch.utils.stats import summary
+
+    line = dict(fields, spans=summary(records))
+    if torch.cuda.is_available():
+        line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return json.dumps(line, default=float)
 
 
 def _cmd_align(args) -> int:
@@ -33,13 +63,14 @@ def _cmd_align(args) -> int:
 
     records = read_fasta(args.input)
     t0 = time.time()
-    out, rep = run_pipeline(records, verbose=args.verbose,
-                            device=args.device)
+    with _span_records(args.verbose) as spans:
+        out, rep = run_pipeline(records, verbose=args.verbose,
+                                device=args.device)
     dt = time.time() - t0
     write_fasta(args.output, out.to_records(), width=0)
     if args.verbose:
         print(f"[ELAPSED TIME] Total Running time: {dt:.3f} sec.")
-        print(json.dumps(rep.timings, default=float))
+        print(_verbose_line(spans, timings=rep.timings))
     return 0
 
 
@@ -60,10 +91,12 @@ def _cmd_base(args) -> int:
     keep: dict = {}
     report: dict = {}
     t0 = time.time()
-    out = align_family(records, config=args.config, strategy=args.strategy,
-                       report=report, observer=observer,
-                       keep=keep if args.annot else None,
-                       device=args.device)
+    with _span_records(args.verbose) as spans:
+        out = align_family(records, config=args.config,
+                           strategy=args.strategy, report=report,
+                           observer=observer,
+                           keep=keep if args.annot else None,
+                           device=args.device)
     dt = time.time() - t0
     if args.annot:
         # per-column 0-200 reliability scores (-annot, MSA.cpp:2142-2206)
@@ -80,8 +113,7 @@ def _cmd_base(args) -> int:
         write_fasta(args.output, out.to_records())
     if args.verbose:
         print(f"[ELAPSED TIME] Total Running time: {dt:.3f} sec.")
-        print(json.dumps({"report": report, "stats": STATS.to_dict()},
-                         default=float))
+        print(_verbose_line(spans, report=report, stats=STATS.to_dict()))
     return 0
 
 

@@ -13,6 +13,7 @@ it does not take (KernelArgumentError) leave run_pipeline.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -90,100 +91,102 @@ def _fallback_align(records, rep: PipelineReport, device_suspect: bool,
                         device=device).sort_by_header()
 
 
+@STATS.span("run_pipeline")
 def run_pipeline(
     records: list[tuple[str, str]], verbose: bool = False, device="cuda",
 ) -> tuple[MSA, PipelineReport]:
-    """Run the full MLProbs pipeline on one family."""
+    """Run the full MLProbs pipeline on one family.  Each stage is the
+    span `stage.<name>`; `rep.timings[name]` is its end in seconds from
+    the start."""
     device = devlib.resolve(device)
     rep = PipelineReport(num_seqs=len(records))
     log = print if verbose else (lambda *a, **k: None)
-    t0 = time.time()
-    last = [t0]
+    t0 = time.perf_counter()
 
-    def mark(name):
-        now = time.time()
-        rep.timings[name] = now - t0
-        STATS.add(f"stage.{name}", now - last[0])
-        last[0] = now
+    @contextlib.contextmanager
+    def stage(name):
+        with STATS.span(f"stage.{name}"):
+            yield
+        rep.timings[name] = time.perf_counter() - t0
 
     if len(records) <= 1:
         return MSA.from_records(records), rep
 
     try:
         # ---- classifier-1 features (the -G pass) -----------------------
-        enc = [alphabet.degap(alphabet.encode(s)) for _, s in records]
-        stats = family_viterbi_stats(enc, with_features=True, device=device)
-        rep.avg_pid, rep.sd_pid = stats.avg_pid, stats.sd_pid
-        rep.factor = stats.factor
-        mark("features")
+        with stage("features"):
+            enc = [alphabet.degap(alphabet.encode(s)) for _, s in records]
+            stats = family_viterbi_stats(enc, with_features=True,
+                                         device=device)
+            rep.avg_pid, rep.sd_pid = stats.avg_pid, stats.sd_pid
+            rep.factor = stats.factor
         log(f"[MAIN STEP] features: pid={stats.avg_pid:.3f} "
             f"sd={stats.sd_pid:.3f} factor={stats.factor}")
 
         # ---- classifier 1: strategy ------------------------------------
-        strategy = forests.classify_strategy(
-            stats.avg_pid, stats.num_seqs, stats.avg_len,
-            stats.avg_sp, stats.peak_ratio,
-        )
-        rep.strategy = strategy
-        mark("classifier1")
+        with stage("classifier1"):
+            strategy = forests.classify_strategy(
+                stats.avg_pid, stats.num_seqs, stats.avg_len,
+                stats.avg_sp, stats.peak_ratio,
+            )
+            rep.strategy = strategy
         log(f"[MAIN STEP] strategy: "
             f"{'non-progressive' if strategy else 'progressive'}")
 
         # ---- base MSA --------------------------------------------------
-        base = align_family(
-            records, config="pnp", stats=stats, strategy=strategy,
-            report=rep.engines, device=device,
-        )
-        base = base.sort_by_header()
-        mark("base_msa")
+        with stage("base_msa"):
+            base = align_family(
+                records, config="pnp", stats=stats, strategy=strategy,
+                report=rep.engines, device=device,
+            )
+            base = base.sort_by_header()
 
         # ---- column scores + classifier 3 ------------------------------
-        col = column_scores(base.rows)
-        un_sp = float(col.mean()) if col.size else 0.0
-        sd_un_sp = (
-            float(np.sqrt(((col - un_sp) ** 2).mean())) if col.size else 0.0
-        )
-        peak = float((col >= 1.0).mean()) if col.size else 0.0
-        realign_mode = forests.classify_realign_strategy(
-            peak, stats.avg_pid, sd_un_sp, un_sp
-        )
-        rep.realign_mode = realign_mode
-        mark("classifier3")
+        with stage("classifier3"):
+            col = column_scores(base.rows)
+            un_sp = float(col.mean()) if col.size else 0.0
+            sd_un_sp = (float(np.sqrt(((col - un_sp) ** 2).mean()))
+                        if col.size else 0.0)
+            peak = float((col >= 1.0).mean()) if col.size else 0.0
+            realign_mode = forests.classify_realign_strategy(
+                peak, stats.avg_pid, sd_un_sp, un_sp
+            )
+            rep.realign_mode = realign_mode
         log(f"[MAIN STEP] {'RIR' if realign_mode else 'RCR'} selected")
 
         # ---- segmentation ----------------------------------------------
-        if realign_mode == 1:
-            class_lens = forests.classify_region_min_length(
-                base.length, base.num_seqs, stats.avg_pid,
-                stats.sd_pid, un_sp,
-            )
-            rep.min_length_class = int(class_lens)
-            found = reg.find_unreliable_regions(
-                list(col), SIGMA, BETA, class_lens
-            )
-        else:
-            found = reg.find_reliable_regions(list(col), THRESHOLD, 0)
-        blocks = reg.partition_columns(found, base.length)
-        rep.num_realign_blocks = sum(b.realign for b in blocks)
-        mark("segmentation")
+        with stage("segmentation"):
+            if realign_mode == 1:
+                class_lens = forests.classify_region_min_length(
+                    base.length, base.num_seqs, stats.avg_pid,
+                    stats.sd_pid, un_sp,
+                )
+                rep.min_length_class = int(class_lens)
+                found = reg.find_unreliable_regions(
+                    list(col), SIGMA, BETA, class_lens
+                )
+            else:
+                found = reg.find_reliable_regions(list(col), THRESHOLD, 0)
+            blocks = reg.partition_columns(found, base.length)
+            rep.num_realign_blocks = sum(b.realign for b in blocks)
 
         # ---- realign + recombine ---------------------------------------
-        do_blocks = realign_mode == 1 or stats.factor > 0
-        if realign_mode == 0 and stats.factor <= 0:
-            # RCR with non-positive factor: realign the whole family
-            # (do_realign.py ExceptionHandling) — a *legitimate* path,
-            # not a crash
-            out = align_family(
-                records, config="quickprobs", report=rep.engines,
-                device=device,
-            )
-            out = out.sort_by_header()
-            rep.whole_family_realign = True
-            rep.fallback = True
-        else:
-            out = realign_and_combine(base, blocks, do_blocks,
-                                      device=device, report=rep)
-        mark("realign")
+        with stage("realign"):
+            do_blocks = realign_mode == 1 or stats.factor > 0
+            if realign_mode == 0 and stats.factor <= 0:
+                # RCR with non-positive factor: realign the whole family
+                # (do_realign.py ExceptionHandling) — a *legitimate*
+                # path, not a crash
+                out = align_family(
+                    records, config="quickprobs", report=rep.engines,
+                    device=device,
+                )
+                out = out.sort_by_header()
+                rep.whole_family_realign = True
+                rep.fallback = True
+            else:
+                out = realign_and_combine(base, blocks, do_blocks,
+                                          device=device, report=rep)
     except (NotImplementedError, KernelBuildError, KernelArgumentError):
         raise
     except Exception as e:
@@ -191,20 +194,19 @@ def run_pipeline(
             raise
         # stage failure: degrade to whole-family QuickProbs-role
         # alignment, recording what broke and where (SURVEY §5.5)
-        stage = next(reversed(rep.timings), "start") if rep.timings \
-            else "start"
-        rep.error = f"{type(e).__name__}@{stage}: {e}"
-        STATS.add("pipeline.crash_fallback", 1.0)
-        out = _fallback_align(records, rep, _is_oom(e), device)
-        rep.crash_fallback = True
-        rep.fallback = True
-        mark("fallback")
+        failed_at = next(reversed(rep.timings), "start")
+        rep.error = f"{type(e).__name__}@{failed_at}: {e}"
+        STATS.count("pipeline.crash_fallback")
+        with stage("fallback"):
+            out = _fallback_align(records, rep, _is_oom(e), device)
+            rep.crash_fallback = True
+            rep.fallback = True
 
-    if out.num_seqs == 0 or out.length == 0:
-        out = _fallback_align(records, rep, False, device)
-        rep.crash_fallback = True
-        rep.fallback = True
-        rep.error = rep.error or "EmptyOutput@realign: empty final MSA"
-    rep.final_hash = out.content_hash()
-    mark("total")
+    with stage("total"):
+        if out.num_seqs == 0 or out.length == 0:
+            out = _fallback_align(records, rep, False, device)
+            rep.crash_fallback = True
+            rep.fallback = True
+            rep.error = rep.error or "EmptyOutput@realign: empty final MSA"
+        rep.final_hash = out.content_hash()
     return out, rep

@@ -66,7 +66,7 @@ def realign_block(block_msa: MSA, device="cuda", report=None) -> MSA:
         try:
             new = align_family(records, config="quickprobs", device=device)
         except BLOCK_RECOVERABLE as e:
-            STATS.add("pipeline.block_errors", 1.0)
+            STATS.count("pipeline.block_errors")
             if report is not None:
                 report.block_errors.append(f"{type(e).__name__}: {e}"[:240])
             return block_msa
