@@ -27,7 +27,14 @@ sets its meshes itself.  Phases (any failure exits non-zero):
     then one torch.profiler window around the family's posterior tensor
     (the five device operations with the most time, the device's idle
     share), and the consistency tensor rebuilt with the plain versions
-    on the card must agree with the kernels' tensor;
+    on the card must agree with the kernels' tensor; then [relax]: one
+    relaxation of that tensor (N=48) and of its first 8 and 4 sequences,
+    baseMSA's and weighted with the last cutoff at 1e-5, on the packed
+    path (`relax_packed_rounds`, the main path's) against the dense
+    einsum (`relax_dense_rounds`, the yardstick, `library_ms`): times,
+    `gemm_flops` against the dense product's, peak bytes over the
+    tensor, and the relaxed pair planes equal within 1e-6 but for
+    entries kept by one side only, which sit within 1e-5 of a cutoff;
  5. [qp]: the realigner's qp posterior (`_qpx_combined_skew`: the qpx
     kernel's hmm5 posterior, the partition half through the sweep
     kernel) on the card against the CPU plain version at Lp=128/B=8
@@ -454,6 +461,101 @@ def feature_kernels_equal(X, Y, LX, LY) -> dict:
     out["qpx.posterior"] = bool(torch.equal(
         qpx.posterior_from_fb(*k, LX, LY), qpx.posterior_from_fb(*p, LX, LY)))
     return out
+
+
+def phase_relax(tensor, records, deferred):
+    """[relax]: one relaxation (two rounds) of the smoke family's tensor
+    and of its first 8 and 4 sequences, unweighted and weighted (last
+    cutoff 1e-5), on the packed path against the dense einsum: both
+    times (CUDA events, median of 3 after one warm-up), `gemm_flops`,
+    peak bytes over the tensor's, and the pair planes compared; then the
+    base aligner's wall seconds on the first 8 and 4 sequences (5 runs
+    each, median and quartiles), the spread that a relaxation's time
+    difference at that size is set against."""
+    import numpy as np
+    import torch
+
+    from mlprobs_tpu_torch.align import aligner
+    from mlprobs_tpu_torch.align import consistency as cons
+    from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return statistics.median(ms), torch.cuda.max_memory_allocated() - base
+
+    for n in (48, 8, 4):
+        S = tensor.S[:n, :n].contiguous()
+        lens = tensor.seq_lens[:n]
+        lp = S.shape[-1]
+        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+        ii = torch.tensor([i for i, _ in pairs], device=S.device)
+        jj = torch.tensor([j for _, j in pairs], device=S.device)
+        pk = cons.Packing(lens, pairs, lp, S.device)
+        for weighted in (False, True):
+            w = (np.random.default_rng(n).random(n) + 0.5 if weighted
+                 else None)
+            final = 1e-5 if weighted else None
+            sc, zs, ww = cons.dense_relax_coeffs(n, w)
+            dense_args = [torch.from_numpy(a).to(S.device)
+                          for a in (sc, zs, ww)]
+
+            def dense():
+                return cons.relax_dense_rounds(
+                    S, *dense_args, reps=2, final_cutoff=final)[ii, jj]
+
+            def packed():
+                R = cons.relax_packed_rounds(pk.pack(S), pk, sc, zs, ww,
+                                             reps=2, final_cutoff=final)
+                return pk.unpack(R)
+
+            library_ms, library_peak = timed(dense)
+            STATS.reset()
+            packed_ms, packed_peak = timed(packed)
+            flops = STATS.counters["gemm_flops"] // 4
+            got, want = packed(), dense()
+            both = (got > 0) == (want > 0)
+            err = float((got - want)[both].abs().max())
+            one = (got + want)[~both]
+            cuts = [cons.CUTOFF] + ([final] if final else [])
+            off_cut = one.numel() and float(torch.stack(
+                [(one - c).abs() for c in cuts]).min(0).values.max())
+            rec = {"n": n, "weighted": weighted, "side": pk.side,
+                   "packed_ms": packed_ms, "library_ms": library_ms,
+                   "gemm_flops": flops,
+                   "dense_flops": 2 * (n * lp) ** 3 * 2,
+                   "packed_peak_bytes": packed_peak,
+                   "library_peak_bytes": library_peak,
+                   "max_abs_err": err, "one_side_cells": int(one.numel()),
+                   "one_side_from_cutoff": off_cut}
+            print("[relax] " + json.dumps(rec), flush=True)
+            if err > 1e-6 or off_cut > 1e-5:
+                deferred.append(f"[relax] packed against dense: {rec}")
+            del got, want, both, one
+        del S
+        if n < 48:
+            walls = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                aligner.align_family(records[:n], config="pnp",
+                                     device="cuda")
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            q = statistics.quantiles(walls[1:], n=4)
+            rec = {"n": n, "family_s_median": statistics.median(walls[1:]),
+                   "family_s_quartiles": [q[0], q[2]], "runs": walls[1:]}
+            print("[relax] base aligner " + json.dumps(rec), flush=True)
 
 
 def phase_determinism_host(work):
@@ -1426,7 +1528,10 @@ def main() -> None:
     print("[tensor] " + json.dumps(rec), flush=True)
     if e_both > TOL["post"] or e_edge > TOL["post"] or e_dist > 1e-5:
         fail(f"consistency tensor: kernels disagree with plain: {rec}")
-    del t_k, t_p, both, one
+    del t_p, both, one
+    clock("relax")
+    phase_relax(t_k, records, deferred)
+    del t_k
 
     # ---- 5. [qp]: the realigner's posterior batch ---------------------------
     clock("qp")

@@ -6,9 +6,14 @@ Reference: MSA::DoRelaxation (MSA.cpp:1172-1281):
 
 masked to the original sparsity support and re-thresholded at 0.01.
 
+* `relax_packed_rounds` (device, the main path): the same update on the
+  tensor packed by true lengths into one (T x T) block matrix
+  (`Packing`, T = sum(L) rounded per block), the pairs i < j only, as a
+  staircase of f32 products over row panels; R_ji = R_ij^T is mirrored.
 * `relax_dense_rounds` (device): the contraction over a dense zero-diagonal
   (N, N, Lp, Lp) posterior tensor, one f32 einsum per round (a plain large
-  product, left to the library as the JAX package left it to XLA).
+  product, left to the library as the JAX package left it to XLA); the
+  yardstick and the reference of the sharded route.
 * `relax_sparse` (host): one product of the (sum(L) x sum(L)) block matrix
   Q with identity diagonal blocks — Q^2 block (i,j) is exactly
   2 P_ij + sum_z P_iz P_zj.  scipy CSR; the path of families with fewer
@@ -26,8 +31,18 @@ import scipy.sparse as sp
 import torch
 
 from mlprobs_tpu_torch.utils import qprand
+from mlprobs_tpu_torch.utils.stats import GLOBAL as STATS
 
 CUTOFF = 0.01  # SparseMatrix.h:14
+# a block of the packed matrix starts on a multiple of 8 floats (32 bytes),
+# so that every GEMM operand cut from it is aligned
+PACK_ALIGN = 8
+# a GEMM of the relaxation's staircase takes row blocks until it has this
+# many rows: narrower panels cost more in launches than a wider one wastes
+# on the blocks below the diagonal inside it (an H100 at N = 48 of 330-470
+# residues: panels of 1, 4, 8 and 47 blocks took 353, 346, 362 and 662 ms
+# a relaxation; at N = 4 one panel of 3 blocks 1.35 ms, 3 panels 2.08 ms)
+PANEL_ROWS = 1536
 
 # Park-Miller minimal standard generator: the deterministic RNG the
 # reference uses identically on host and device so CPU/GPU runs match
@@ -353,3 +368,161 @@ def relax_dense_rounds(S, self_coef, z_scale, w, reps: int = 2,
         del prod
         S = torch.where((S > 0) & (r >= c), r, 0.0)
     return S
+
+
+class Packing:
+    """Where each sequence's rows and columns lie in the packed (T x T)
+    block matrix of a family: block i starts at `offs[i]`, spans L_i
+    rounded up to PACK_ALIGN, and holds S[i, j, :L_i, :L_j] against block
+    j; the rows and columns past L_i are zero, and so are the diagonal
+    blocks.  `unpack` gives back the (Lp x Lp) planes of `pairs`, in
+    order.  The index tensors go to `device` here, before any round is
+    enqueued (a copy from the host waits for the stream), and each is
+    one-dimensional: advanced indices that broadcast against each other
+    are expanded in memory, (T, T) or (pairs, Lp, Lp) int64s."""
+
+    def __init__(self, seq_lens, pairs, lp: int, device):
+        lens = np.asarray(seq_lens, np.int64)
+        sizes = -(-lens // PACK_ALIGN) * PACK_ALIGN
+        self.lens, self.lp = lens, lp
+        self.offs = np.concatenate([[0], np.cumsum(sizes)])
+        self.side = int(self.offs[-1])
+        # the block of each packed column and the position in it
+        block = np.repeat(np.arange(len(lens)), sizes)
+        pos = np.arange(self.side) - self.offs[block]
+        blk_len = lens[block]
+        # the pairs by their first sequence; the packed columns of each
+        # pair's second block (clamped past L_j, where the plane is zero)
+        ii = np.array([i for i, _ in pairs], np.int64)
+        jj = np.array([j for _, j in pairs], np.int64)
+        ar = np.arange(lp)
+        self._groups = [(int(i), np.flatnonzero(ii == i))
+                        for i in np.unique(ii)]
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        self._blk = dev(block)
+        self._pos = dev(np.minimum(pos, blk_len - 1))
+        self._pad = dev(pos >= blk_len)
+        self._ks = dev(np.concatenate([k for _, k in self._groups]))
+        self._cols = dev(self.offs[jj][:, None]
+                         + np.minimum(ar, lens[jj][:, None] - 1))
+        self._pad_c = dev(ar >= lens[jj][:, None])
+
+    def pack(self, S):
+        """Q[offs[i] + a, offs[j] + b] = S[i, j, a, b] for a < L_i and
+        b < L_j, zero elsewhere: a gather of each row block from the
+        (N, N, Lp, Lp) tensor."""
+        V = S.permute(0, 2, 1, 3)          # V[i, a, j, b] = S[i, j, a, b]
+        Q = S.new_zeros((self.side, self.side))
+        for i, lo in enumerate(self.offs[:-1]):
+            li = int(self.lens[i])
+            Q[lo:lo + li] = V[i, :li, self._blk, self._pos]
+        Q.masked_fill_(self._pad, 0.0)
+        return Q
+
+    def unpack(self, R):
+        """The (pairs, Lp, Lp) planes of the pairs' blocks (i, j) of R,
+        zero past each pair's lengths: the dense tensor's S[ii, jj]
+        layout."""
+        lp = self.lp
+        planes = R.new_zeros((len(self._cols), lp, lp))
+        at = 0
+        for i, ks in self._groups:
+            lo, li = int(self.offs[i]), int(self.lens[i])
+            k = self._ks[at:at + len(ks)]
+            at += len(ks)
+            src = R[lo:lo + li].index_select(1, self._cols[k].reshape(-1))
+            planes[:, :li].index_copy_(
+                0, k, src.view(li, len(ks), lp).transpose(0, 1))
+        planes.masked_fill_(self._pad_c[:, None, :], 0.0)
+        return planes
+
+
+def _panels(offs):
+    """(first, end) row blocks of each GEMM of the staircase: consecutive
+    blocks until the panel holds PANEL_ROWS rows, the last block (no
+    column right of it) left out."""
+    n = len(offs) - 1
+    i0 = 0
+    while i0 < n - 1:
+        i1 = i0 + 1
+        while i1 < n - 1 and offs[i1] - offs[i0] < PANEL_ROWS:
+            i1 += 1
+        yield i0, i1
+        i0 = i1
+
+
+def relax_packed_rounds(Q, packing: Packing, self_coef, z_scale, w,
+                        reps: int = 2, cutoff: float = CUTOFF,
+                        final_cutoff: float | None = None):
+    """`reps` rounds of `relax_dense_rounds`' update on the packed matrix
+    Q (`Packing.pack`), computed for the blocks i < j only.
+
+    The coefficients are symmetric (both depend on w_i + w_j) and so is
+    the tensor (S_ji = S_ij^T), so R_ji = R_ij^T: a round multiplies each
+    panel of row blocks by the columns right of its first block (the z
+    sum runs over every block; Q's zero diagonal blocks add exact zeros,
+    as in the dense einsum), applies the update, the support mask and the
+    cutoff to that strip, and between rounds writes each row block's
+    upper strip, transposed, below the diagonal.  After the last round
+    the blocks below the diagonal are stale: only the upper ones are
+    read.  f32 with TF32 off.  Q is overwritten; the counter `gemm_flops`
+    gains 2 m n k of each product it runs.  Host arrays: `self_coef`,
+    `z_scale` (N, N), `w` (N,)."""
+    if not (np.array_equal(self_coef, self_coef.T)
+            and np.array_equal(z_scale, z_scale.T)):
+        raise ValueError("relaxation coefficients are not symmetric: the "
+                         "upper blocks do not give the lower ones")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = len(w)
+    # one copy from the host: self_coef, z_scale, w
+    coef = torch.from_numpy(np.concatenate(
+        [self_coef.ravel(), z_scale.ravel(), w]).astype(np.float32)).to(
+        Q.device)
+    blk = packing._blk
+    # (N, T): row block i's coefficient against each packed column
+    sc = coef[:n * n].view(n, n)[:, blk]
+    zs = coef[n * n:2 * n * n].view(n, n)[:, blk]
+    wcol = None if np.all(w == 1.0) else coef[2 * n * n:][blk]
+    out = torch.zeros_like(Q)
+    flops = 0
+    for it in range(reps):
+        last = it == reps - 1
+        c = final_cutoff if final_cutoff is not None and last else cutoff
+        flops += _relax_round(Q, out, packing, sc, zs, wcol, c,
+                              mirror=not last)
+        Q, out = out, Q
+    STATS.count("gemm_flops", flops)
+    return Q
+
+
+def _relax_round(Q, out, packing: Packing, sc, zs, wcol, cutoff: float,
+                 mirror: bool) -> int:
+    """One round from Q into `out`.  A panel's strip right of its first
+    block holds the panel's blocks i < j and, inside the panel, its zero
+    diagonal blocks and some blocks below the diagonal; with `mirror`,
+    every row block's upper strip is then written, transposed, below the
+    diagonal, over those too.  Returns the products' 2 m n k."""
+    offs = packing.offs
+    side = packing.side
+    zero = Q.new_zeros(())
+    flops = 0
+    for i0, i1 in _panels(offs):
+        r0, r1, c0 = int(offs[i0]), int(offs[i1]), int(offs[i0 + 1])
+        a = Q[r0:r1] if wcol is None else Q[r0:r1] * wcol
+        prod = a @ Q[:, c0:]
+        del a
+        flops += 2 * (r1 - r0) * (side - c0) * side
+        rows = packing._blk[r0:r1]
+        s = Q[r0:r1, c0:]
+        # relax_dense_rounds' epilogue, operation for operation
+        r = sc[rows, c0:] * s + zs[rows, c0:] * prod
+        del prod
+        torch.where((s > 0) & (r >= cutoff), r, zero, out=out[r0:r1, c0:])
+        if mirror:
+            for i in range(i0, i1):
+                lo, hi = int(offs[i]), int(offs[i + 1])
+                out[hi:, lo:hi].copy_(out[lo:hi, hi:].T)
+    return flops

@@ -438,11 +438,12 @@ class DevicePosteriorTensor:
     """Device-resident all-pairs posterior tensor + MWT distances.
 
     Posterior planes stay on the device as a dense zero-diagonal
-    (N, N, Lp, Lp) tensor; the consistency relaxation runs as one einsum
-    per round (MSA.cpp:1172-1360 / ConsistencyStage.cpp:133-259), and
-    only the final sparse top-k extraction crosses to the host.  The
-    full cutoff-thresholded posterior (not a top-k subset) goes through
-    the relaxation (SparseMatrix.h:14).
+    (N, N, Lp, Lp) tensor; the consistency relaxation (MSA.cpp:1172-1360
+    / ConsistencyStage.cpp:133-259) runs on it packed by true lengths,
+    the pairs i < j only (consistency.relax_packed_rounds), and only the
+    final sparse top-k extraction crosses to the host.  The full
+    cutoff-thresholded posterior (not a top-k subset) goes through the
+    relaxation (SparseMatrix.h:14).
     """
 
     def __init__(self, S, pairs, dist, seq_lens):
@@ -451,14 +452,15 @@ class DevicePosteriorTensor:
         self.dist = dist            # (N, N) np
         self.seq_lens = seq_lens
 
-    def _extract(self, S) -> dict:
-        """Top-k extract the pair planes to host CSRs (the only
-        device -> host crossing of the consistency path)."""
-        dev = S.device
+    def _pair_index(self, dev):
+        return (torch.tensor([i for i, _ in self.pairs], device=dev),
+                torch.tensor([j for _, j in self.pairs], device=dev))
+
+    def _extract(self, planes) -> dict:
+        """Top-k extract the (pairs, Lp, Lp) planes to host CSRs (the
+        only device -> host crossing of the consistency path)."""
         with STATS.sub("topk_copy"):
-            ii = torch.tensor([i for i, _ in self.pairs], device=dev)
-            jj = torch.tensor([j for _, j in self.pairs], device=dev)
-            vals, idx = _row_topk(S[ii, jj], EXTRACT_TOPK)
+            vals, idx = _row_topk(planes, EXTRACT_TOPK)
             vals = vals.cpu().numpy()
             idx = idx.cpu().numpy()
         posts = {}
@@ -472,7 +474,8 @@ class DevicePosteriorTensor:
 
     def extract_csrs(self) -> dict:
         """Host CSRs of the unrelaxed posteriors."""
-        return self._extract(self.S)
+        ii, jj = self._pair_index(self.S.device)
+        return self._extract(self.S[ii, jj])
 
     def relax_and_extract(
         self,
@@ -484,26 +487,33 @@ class DevicePosteriorTensor:
     ) -> dict:
         """`reps` relaxation rounds on the device, host CSRs: baseMSA's
         without `weights`, QuickProbs' weighted accept-all with them.
-        With a mesh, the rows of the pair matrix split over it."""
+        With a mesh, the rows of the dense pair matrix split over it;
+        without, the tensor is packed by true lengths and the upper
+        blocks relaxed (the counter `gemm_flops`)."""
         from mlprobs_tpu_torch.align import consistency as cons
 
-        n = self.S.shape[0]
+        n, _, lp, _ = self.S.shape
         dev = self.S.device
         with STATS.sub("relax"):
             sc, zs, w = cons.dense_relax_coeffs(
                 n, weights, selfweight=selfweight, selectivity=selectivity)
             mesh = _mesh(dev)
             if mesh is not None:
+                ii, jj = self._pair_index(dev)
                 S = _relax_sharded(self.S, sc, zs, w, reps, mesh,
                                    final_cutoff=final_cutoff)
+                planes = S[ii, jj]
+                del S
             else:
-                sc, zs, w = (torch.from_numpy(a).to(dev)
-                             for a in (sc, zs, w))
-                S = cons.relax_dense_rounds(self.S, sc, zs, w, reps=reps,
-                                            final_cutoff=final_cutoff)
+                packing = cons.Packing(self.seq_lens, self.pairs, lp, dev)
+                R = cons.relax_packed_rounds(packing.pack(self.S), packing,
+                                             sc, zs, w, reps=reps,
+                                             final_cutoff=final_cutoff)
+                planes = packing.unpack(R)
+                del R
             STATS.count("pairs", len(self.pairs))
             STATS.count("rounds", reps)
-        return self._extract(S)
+        return self._extract(planes)
 
 
 def _relax_sharded(S, sc, zs, w, reps: int, mesh: PairsMesh,

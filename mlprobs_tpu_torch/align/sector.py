@@ -1,7 +1,7 @@
 """Sector-tiled consistency relaxation for families over the dense
 tensor's budget.
 
-The dense device path (consistency.relax_dense_rounds) needs the whole
+The dense device path (consistency.relax_packed_rounds) needs the whole
 (N, N, Lp, Lp) posterior tensor resident.  A family over that budget is
 relaxed by *sectors*, as the reference does on the GPU
 (RelaxationSector.cpp:14-60, QuickConsistencyStage.cpp:88-215) and the

@@ -83,8 +83,9 @@ class EngineConfig:
     host_sector_budget_bytes: float = 8e9
     # budgets on the card, as shares of the device memory free at first
     # use: the posterior planes of a batch; the dense (N, N, Lp, Lp)
-    # consistency tensor, whose einsum relaxation holds about eight
-    # tensor-sized buffers at its peak; and one step of the sector
+    # consistency tensor, whose relaxation and top-k extraction hold about
+    # two tensor sizes more at their peak (a share set when a dense einsum
+    # held about eight: ROADMAP §2 item 2); and one step of the sector
     # relaxation (align/sector.py counts its whole peak), which runs
     # after the posterior batches have freed their planes
     plane_budget_share: float = 0.25
