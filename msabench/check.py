@@ -14,7 +14,10 @@ numbers are compared:
   posterior tensor, by a loop of matrix products over (i, z) that shares
   no code with the program's einsum: the norm of the difference over the
   norm of the float64 relaxation, on the entries that either side puts
-  at or above `MARGIN`.
+  at or above `MARGIN`.  The float64 relaxation is worked out twice,
+  every cutoff (the posterior tensor's and each round's) lowered and
+  raised by `CUTOFF_TIE`, and each entry is read against the nearer of
+  the two.
 * `sp_gap`: the share of the reference MSA's aligned residue pairs that
   the program's MSA does not align (1 - SP, the bali_score sum-of-pairs
   of mlprobs_tpu_torch/bench/quality.py at commit 30598a0, copied here).
@@ -22,9 +25,16 @@ numbers are compared:
 Each number has its limit in `limits/<cell>.json`, set between the sound
 runs' readings and the control's (`CONTROLS`, the configuration's
 `control`); PERF.md gives the readings.
+
+The reference runs msaref with its four loops over diagonals replayed
+(`routes/graph_replay.py`): the same operations on the same shapes, so
+every value comes out as msaref's own loops give it, bit for bit, in
+fewer launches from the host.  `plain=True` runs msaref's loops as they
+are (`python3 -m msabench.control --route-check` compares the two).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -48,6 +58,19 @@ MARGIN = 0.02
 # what relax_gap reads when the calls do not match (a missing call, a
 # missing pair): as far off as an answer can be
 NO_MATCH = 1.0
+# the posterior tensor keeps an entry where it is at or above the
+# cutoff (0.01), and so does each round of the relaxation, which builds
+# on what was kept: an entry within rounding of a cutoff is kept on one
+# side and not on the other, and every entry of the relaxation that
+# draws on it moves by a per cent or so (a posterior of float32(0.01)
+# in the reference, one ulp less in the program: PERF.md).  The
+# float64 relaxation is worked out from the posteriors and with the
+# rounds' cutoffs all lowered by this share, and all raised by it, so
+# that such an entry is kept in one and dropped in the other; the
+# program is read against the nearer.  The program's and the
+# reference's posteriors differ by 1e-7 of a value (the median, and the
+# tie seen); a wider share puts more entries on both sides at once
+CUTOFF_TIE = 1e-5
 
 
 def degapped_ok(inputs, aligned) -> bool:
@@ -178,33 +201,45 @@ def _csr_entries(m) -> tuple:
     return coo.row, coo.col, coo.data.astype(np.float64)
 
 
-def relax_gap(test: list, ref: list, margin: float = MARGIN) -> float:
+def relax_gap(test: list, ref: list, alt: list | None = None,
+              margin: float = MARGIN) -> float:
     """The largest, over the relaxation calls, of |test - ref| / |ref|
     (Frobenius norms over every pair of the call) on the entries that
-    either side holds at or above `margin`.  `test`: per call
-    {pair: scipy CSR} (the program's output) or {pair: (rows, cols,
-    values)}; `ref`: per call {pair: (rows, cols, values)}.  NO_MATCH
-    where the calls or their pairs differ."""
-    if len(test) != len(ref) or not ref:
+    any side holds at or above `margin`, each entry of `test` read
+    against the nearer of `ref` and `alt` (the float64 relaxation with
+    its cutoffs lowered and raised by CUTOFF_TIE; `alt` None: `ref`
+    alone).  `test`: per call {pair: scipy CSR} (the program's output)
+    or {pair: (rows, cols, values)}; `ref`, `alt`: per call {pair:
+    (rows, cols, values)}.  NO_MATCH where the calls or their pairs
+    differ."""
+    if alt is None:
+        alt = ref
+    if len(test) != len(ref) or len(alt) != len(ref) or not ref:
         return NO_MATCH
     worst = 0.0
-    for t_call, r_call in zip(test, ref):
-        if set(t_call) != set(r_call):
+    for t_call, r_call, h_call in zip(test, ref, alt):
+        if set(t_call) != set(r_call) or set(h_call) != set(r_call):
             return NO_MATCH
         num = den = 0.0
         for key, (rr, rc, rv) in r_call.items():
             t = t_call[key]
             tr, tc, tv = t if isinstance(t, tuple) else _csr_entries(t)
-            width = int(max(tc.max(initial=0), rc.max(initial=0))) + 1
+            hr, hc, hv = h_call[key]
+            width = int(max(tc.max(initial=0), rc.max(initial=0),
+                            hc.max(initial=0))) + 1
             tk = tr.astype(np.int64) * width + tc
             rk = rr.astype(np.int64) * width + rc
-            keys = np.union1d(tk, rk)
+            hk = hr.astype(np.int64) * width + hc
+            keys = np.union1d(np.union1d(tk, rk), hk)
             a = np.zeros(len(keys))
             b = np.zeros(len(keys))
+            h = np.zeros(len(keys))
             a[np.searchsorted(keys, tk)] = tv
             b[np.searchsorted(keys, rk)] = rv
-            on = np.maximum(a, b) >= margin
-            num += float(((a[on] - b[on]) ** 2).sum())
+            h[np.searchsorted(keys, hk)] = hv
+            on = np.maximum(np.maximum(a, b), h) >= margin
+            num += float(np.minimum((a[on] - b[on]) ** 2,
+                                    (a[on] - h[on]) ** 2).sum())
             den += float((b[on] ** 2).sum())
         if den == 0.0:
             gap = 0.0 if num == 0.0 else NO_MATCH
@@ -253,31 +288,60 @@ class _Stop(Exception):
 class Reference:
     records: list | None            # the MSA; None when stopped early
     relax: list = field(default_factory=list)          # float64, a call
+    relax_hi: list = field(default_factory=list)       # cutoffs raised
     relax_f32: list = field(default_factory=list)      # the reference's
     relax_control: list = field(default_factory=list)  # TF32 control
 
 
 def reference(traffic: dict, records, device, sp_control: bool = False,
-              relax_control: bool = False, stop_after: int | None = None
-              ) -> Reference:
+              relax_control: bool = False, stop_after: int | None = None,
+              plain: bool = False) -> Reference:
     """The plain reference through the traffic's entry on `records`: its
     MSA, and for each relaxation call the float64 relaxation of the
     reference's own posterior tensor (top-k entries as the program
-    extracts them).  `sp_control`: the whole run in the lower precision
-    of CONTROLS["sp_gap"] (then no relaxation is read).  `relax_control`:
-    each call's relaxation also by the reference's own code in float32
-    and in TF32 (CONTROLS["relax_gap"]).  `stop_after`: end the run
-    after that many relaxation calls (no MSA)."""
+    extracts them), every cutoff lowered by CUTOFF_TIE (`relax`) and
+    raised by it (`relax_hi`); the reference's own relaxation and MSA
+    see the tensor at its cutoff.  `sp_control`: the whole run in the
+    lower precision of CONTROLS["sp_gap"] (then no relaxation is read).
+    `relax_control`: each call's relaxation also by the reference's own
+    code in float32 and in TF32 (CONTROLS["relax_gap"]).  `stop_after`:
+    end the run after that many relaxation calls (no MSA).  `plain`:
+    msaref's own loops over diagonals in place of the replayed route's."""
     import torch
 
     from msabench.msaref.align import consistency, pairwise
     from msabench.msaref.align.aligner import align_family
     from msabench.msaref.pipeline.driver import run_pipeline
     from msabench.msaref.utils import host
+    from msabench.routes import graph_replay
 
     out = Reference(None)
     owner = pairwise.DevicePosteriorTensor
     orig = owner.relax_and_extract
+    orig_extract = owner.extract_csrs
+    dense_fns = {k: getattr(pairwise, k)
+                 for k in ("_wf_dense_fn", "_qp_exact_dense_fn")}
+    cut = pairwise.CUTOFF
+
+    def lowered(make):
+        """A dense posterior builder whose planes keep what lies at or
+        above the posterior cutoff lowered by CUTOFF_TIE."""
+        def made(*a, **k):
+            run = make(*a, **k)
+
+            def ran(*args):
+                pairwise.CUTOFF = cut * (1.0 - CUTOFF_TIE)
+                try:
+                    return run(*args)
+                finally:
+                    pairwise.CUTOFF = cut
+            return ran
+        return made
+
+    def at_cutoff(tensor):
+        """The tensor as msaref builds it: posteriors at or above its
+        cutoff."""
+        tensor.S.masked_fill_(~(tensor.S >= cut), 0.0)
 
     def read(tensor, weights=None, selfweight=3.0, selectivity=200.0,
              reps=2, final_cutoff=None):
@@ -285,10 +349,17 @@ def reference(traffic: dict, records, device, sp_control: bool = False,
                   selectivity=selectivity, reps=reps,
                   final_cutoff=final_cutoff)
         if not sp_control:
-            R = relax64(tensor.S, cutoff=consistency.CUTOFF, **kw)
-            out.relax.append(topk_entries(R, tensor.pairs, tensor.seq_lens,
-                                          pairwise.EXTRACT_TOPK))
-            del R
+            for into, f in ((out.relax, 1.0 - CUTOFF_TIE),
+                            (out.relax_hi, 1.0 + CUTOFF_TIE)):
+                S = (tensor.S if f < 1.0 else
+                     torch.where(tensor.S >= cut * f, tensor.S, 0.0))
+                R = relax64(S, cutoff=consistency.CUTOFF * f,
+                            **{**kw, "final_cutoff": None if final_cutoff
+                               is None else final_cutoff * f})
+                into.append(topk_entries(R, tensor.pairs, tensor.seq_lens,
+                                         pairwise.EXTRACT_TOPK))
+                del R, S
+            at_cutoff(tensor)
         if relax_control:
             for tf32, into in ((False, out.relax_f32),
                                (True, out.relax_control)):
@@ -305,18 +376,31 @@ def reference(traffic: dict, records, device, sp_control: bool = False,
     pairwise.POSTERIOR_DTYPE = torch.bfloat16 if sp_control else None
     host.PLANE_BF16 = sp_control
     owner.relax_and_extract = read
+    if not sp_control:
+        def extract(tensor):
+            at_cutoff(tensor)
+            return orig_extract(tensor)
+        owner.extract_csrs = extract
+        for k, make in dense_fns.items():
+            setattr(pairwise, k, lowered(make))
+    route = contextlib.nullcontext() if plain else graph_replay.install()
     try:
-        if traffic["entry"] == "run_pipeline":
-            msa, _ = run_pipeline(records, device=device)
-        else:
-            msa = align_family(records, device=device,
-                               **traffic.get("entry_args", {}))
+        with route:
+            if traffic["entry"] == "run_pipeline":
+                msa, _ = run_pipeline(records, device=device)
+            else:
+                msa = align_family(records, device=device,
+                                   **traffic.get("entry_args", {}))
         out.records = msa.to_records()
         del msa
     except _Stop:
         pass
     finally:
         owner.relax_and_extract = orig
+        owner.extract_csrs = orig_extract
+        for k, make in dense_fns.items():
+            setattr(pairwise, k, make)
+        pairwise.CUTOFF = cut
         consistency.ALLOW_TF32 = False
         pairwise.POSTERIOR_DTYPE = None
         host.PLANE_BF16 = False

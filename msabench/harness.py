@@ -333,7 +333,8 @@ def run(cell: str, bench: dict, seed: int, seconds: float, traced: bool,
         r0 = time.perf_counter()
         ref = check.reference(traffic, f.records, device)
         gaps.append(check.sp_gap(f.aligned, ref.records))
-        rgaps.append(check.relax_gap(relax_calls[i], ref.relax))
+        rgaps.append(check.relax_gap(relax_calls[i], ref.relax,
+                                     ref.relax_hi))
         log(f"[check] family {f.k}: reference in "
             f"{time.perf_counter() - r0:.1f} s, sp_gap {gaps[-1]!r}, "
             f"relax_gap {rgaps[-1]!r} over {len(ref.relax)} relaxation "

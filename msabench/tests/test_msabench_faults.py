@@ -18,22 +18,32 @@ ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
-def small(cfg_name="twilight48"):
-    cfg = harness.load_json("configs", cfg_name)
-    cfg["family"].update(n=8, lmin=60, lmax=90, cuts=None)
+# family shapes at a size a test run holds: twilight48's, and a long
+# member with two cut from it (300, 70 and 50 residues: the long
+# member's pairs in one bucket, the short pair in another)
+SHAPES = {"twilight48": {"n": 8, "lmin": 60, "lmax": 90, "cuts": None},
+          "long": {"n": 3, "lmin": 300, "lmax": 300, "sub": 0.3,
+                   "indel": 0.05, "cuts": [None, [20, 90], [150, 200]]}}
+
+
+def small(shape="twilight48"):
+    cfg = harness.load_json("configs", "twilight48")
+    cfg["family"].update(SHAPES[shape])
     return cfg
 
 
-def run_cell(cell, seconds=0.1):
+def run_cell(cell, seconds=0.1, shape="twilight48"):
     torch.set_num_threads(2)
     return harness.run(cell, BENCH, 2**32 + 11, seconds, False,
                        time.perf_counter(), device="cpu",
-                       config=small(), log=lambda *a, **k: None)
+                       config=small(shape), log=lambda *a, **k: None)
 
 
-@pytest.mark.parametrize("cell", ["base.twilight48", "align.twilight48"])
-def test_sound_run_is_correct(cell):
-    r = run_cell(cell)
+@pytest.mark.parametrize("cell, shape", [("base.twilight48", "twilight48"),
+                                         ("align.twilight48", "twilight48"),
+                                         ("base.twilight48", "long")])
+def test_sound_run_is_correct(cell, shape):
+    r = run_cell(cell, shape=shape)
     assert r["correct"], r["checks"]
     assert r["checks"]["sp_gap"]["value"] == 0.0
     assert 0.0 < r["checks"]["relax_gap"]["value"] < 1e-6
@@ -81,13 +91,66 @@ def test_relax_gap_reads_what_differs():
         check.NO_MATCH
 
 
+def test_relax_gap_reads_the_nearer_of_two_cutoffs():
+    """An entry the float64 relaxation keeps with its cutoffs lowered
+    and drops with them raised reads no gap either way; every other
+    entry is read as before."""
+    rows, cols = np.array([0, 0, 1]), np.array([0, 1, 2])
+    lo = [{(0, 1): (rows, cols, np.array([0.5, 0.03, 0.4]))}]
+    hi = [{(0, 1): (rows[[0, 2]], cols[[0, 2]], np.array([0.5, 0.4]))}]
+    assert check.relax_gap(lo, lo, hi) == 0.0
+    assert check.relax_gap(hi, lo, hi) == 0.0
+    assert check.relax_gap(hi, lo) > 0.04
+    off = [{(0, 1): (rows[[0, 2]], cols[[0, 2]], np.array([0.6, 0.4]))}]
+    assert check.relax_gap(off, lo, hi) == pytest.approx(
+        0.1 / np.sqrt(0.5 ** 2 + 0.03 ** 2 + 0.4 ** 2))
+    assert check.relax_gap(lo, lo, [{(0, 2): hi[0][(0, 1)]}]) == \
+        check.NO_MATCH
+
+
+@pytest.mark.parametrize("tie", [check.CUTOFF_TIE, 0.5])
+def test_reference_keeps_msaref_at_its_cutoff(tie, monkeypatch):
+    """The reference's float64 relaxations are worked out with every
+    cutoff lowered and raised by CUTOFF_TIE (far apart where it is
+    wide), while msaref's own relaxation and MSA are those of its tensor
+    at its cutoff: the same as msaref run without the check."""
+    from msabench import generator
+    from msabench.control import _same_calls
+    from msabench.msaref.align import pairwise
+    from msabench.msaref.align.aligner import align_family
+
+    monkeypatch.setattr(check, "CUTOFF_TIE", tie)
+    traffic = harness.load_json("traffic", "base")
+    recs = generator.family(small()["family"], 7, 0)
+    torch.set_num_threads(2)
+    own = []
+    fn = pairwise.DevicePosteriorTensor.relax_and_extract
+
+    def kept(tensor, *a, **k):
+        own.append(fn(tensor, *a, **k))
+        return own[-1]
+    monkeypatch.setattr(pairwise.DevicePosteriorTensor, "relax_and_extract",
+                        kept)
+    want = align_family(recs, device="cpu",
+                        **traffic["entry_args"]).to_records()
+    monkeypatch.setattr(pairwise.DevicePosteriorTensor, "relax_and_extract",
+                        fn)
+    ref = check.reference(traffic, recs, "cpu", relax_control=True)
+    assert ref.records == want
+    assert _same_calls(ref.relax_f32, own)
+    assert pairwise.CUTOFF == 0.01
+    if tie == 0.5:
+        assert check.relax_gap(ref.relax_hi, ref.relax) > 0.1
+
+
 def _unchanged_relaxation(monkeypatch):
-    """A step that returns its state unchanged: the relaxation rounds
-    give back the posteriors they were given."""
+    """A step that returns its state unchanged: the relaxation rounds of
+    the main path (the tensor packed by true lengths) give back the
+    packed posteriors they were given."""
     from mlprobs_tpu_torch.align import consistency
 
-    monkeypatch.setattr(consistency, "relax_dense_rounds",
-                        lambda S, *a, **k: S)
+    monkeypatch.setattr(consistency, "relax_packed_rounds",
+                        lambda Q, *a, **k: Q)
 
 
 def _half_batch_left_out(monkeypatch):
@@ -124,13 +187,14 @@ def _answer_altered(monkeypatch):
     monkeypatch.setattr(aligner, "align_family", altered)
 
 
-@pytest.mark.parametrize("fault, fails", [
-    (_unchanged_relaxation, "relax_gap"),
-    (_half_batch_left_out, "relax_gap"),
-    (_answer_altered, "invalid_msas")])
-def test_fault_is_not_correct(fault, fails, monkeypatch):
+@pytest.mark.parametrize("fault, fails, shape", [
+    (_unchanged_relaxation, "relax_gap", "twilight48"),
+    (_half_batch_left_out, "relax_gap", "twilight48"),
+    (_answer_altered, "invalid_msas", "twilight48"),
+    (_unchanged_relaxation, "relax_gap", "long")])
+def test_fault_is_not_correct(fault, fails, shape, monkeypatch):
     fault(monkeypatch)
-    r = run_cell("base.twilight48")
+    r = run_cell("base.twilight48", shape=shape)
     assert not r["correct"], r["checks"]
     c = r["checks"][fails]
     assert c["value"] > c["limit"], r["checks"]
@@ -152,9 +216,9 @@ def test_relax_control_fails_on_the_cpu(cell):
         recs = generator.family(cfg["family"], seed, 0)
         ref = check.reference(traffic, recs, "cpu", relax_control=True,
                               stop_after=1)
-        gap = check.relax_gap(ref.relax_control, ref.relax)
+        gap = check.relax_gap(ref.relax_control, ref.relax, ref.relax_hi)
         assert gap > check.limits(cell)["relax_gap"], (seed, gap)
-        assert check.relax_gap(ref.relax_f32, ref.relax) < \
+        assert check.relax_gap(ref.relax_f32, ref.relax, ref.relax_hi) < \
             check.limits(cell)["relax_gap"]
 
 
@@ -196,9 +260,9 @@ def test_relax_control_fails_on_the_card(card, cell):
         recs = generator.family(cfg["family"], seed, 0)
         ref = check.reference(traffic, recs, card, relax_control=True,
                               stop_after=1)
-        gap = check.relax_gap(ref.relax_control, ref.relax)
+        gap = check.relax_gap(ref.relax_control, ref.relax, ref.relax_hi)
         assert gap > check.limits(cell)["relax_gap"], (seed, gap)
-        assert check.relax_gap(ref.relax_f32, ref.relax) < \
+        assert check.relax_gap(ref.relax_f32, ref.relax, ref.relax_hi) < \
             check.limits(cell)["relax_gap"]
 
 
