@@ -375,8 +375,8 @@ class Packing:
     block matrix of a family: block i starts at `offs[i]`, spans L_i
     rounded up to PACK_ALIGN, and holds S[i, j, :L_i, :L_j] against block
     j; the rows and columns past L_i are zero, and so are the diagonal
-    blocks.  `unpack` gives back the (Lp x Lp) planes of `pairs`, in
-    order.  The index tensors go to `device` here, before any round is
+    blocks.  `unpack` gives back the (lp x lp) planes of `pairs`, in
+    order (`lp` at least the longest sequence).  The index tensors go to `device` here, before any round is
     enqueued (a copy from the host waits for the stream), and each is
     one-dimensional: advanced indices that broadcast against each other
     are expanded in memory, (T, T) or (pairs, Lp, Lp) int64s."""
@@ -423,9 +423,9 @@ class Packing:
         return Q
 
     def unpack(self, R):
-        """The (pairs, Lp, Lp) planes of the pairs' blocks (i, j) of R,
+        """The (pairs, lp, lp) planes of the pairs' blocks (i, j) of R,
         zero past each pair's lengths: the dense tensor's S[ii, jj]
-        layout."""
+        layout, cut to lp."""
         lp = self.lp
         planes = R.new_zeros((len(self._cols), lp, lp))
         at = 0

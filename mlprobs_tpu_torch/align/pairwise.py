@@ -427,6 +427,48 @@ def topk_to_csr(vals: np.ndarray, idx: np.ndarray, li: int, lj: int):
     )
 
 
+def _kept_entries(vals: torch.Tensor, idx: torch.Tensor, pairs,
+                  seq_lens):
+    """The entries of `_row_topk`'s (pairs, L, K) arrays that
+    `topk_to_csr` keeps (above zero, inside the pair's true lengths),
+    ordered by column within each row, on the host: the (pairs, L)
+    counts a row, and the values and columns, pair by pair and row by
+    row."""
+    dev = vals.device
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    ii = torch.tensor([i for i, _ in pairs], device=dev)
+    jj = torch.tensor([j for _, j in pairs], device=dev)
+    rows = torch.arange(vals.shape[1], dtype=torch.int32, device=dev)
+    keep = ((vals > 0.0) & (rows[None, :] < lens[ii][:, None])[..., None]
+            & (idx < lens[jj][:, None, None]))
+    past = int(max(seq_lens)) + 1            # sorts after every column
+    cols, order = torch.sort(torch.where(keep, idx, past), dim=-1)
+    kept = cols < past
+    data = torch.gather(vals, -1, order)[kept]
+    return (kept.sum(-1, dtype=torch.int32).cpu().numpy(),
+            data.cpu().numpy(), cols[kept].cpu().numpy())
+
+
+def _entries_to_csrs(counts: np.ndarray, data: np.ndarray,
+                     cols: np.ndarray, pairs, seq_lens) -> dict:
+    """{pair: CSR (L_i, L_j)} of `_kept_entries`' arrays; each matrix
+    holds a slice of `data` and `cols`."""
+    import scipy.sparse as sp
+
+    ends = np.cumsum(counts, axis=1, dtype=np.int32)
+    offs = np.zeros(len(pairs) + 1, np.int64)
+    np.cumsum(ends[:, -1], out=offs[1:])
+    posts = {}
+    for k, (i, j) in enumerate(pairs):
+        li, lj = seq_lens[i], seq_lens[j]
+        indptr = np.zeros(li + 1, np.int32)
+        indptr[1:] = ends[k, :li]
+        lo, hi = offs[k], offs[k + 1]
+        posts[(i, j)] = sp.csr_matrix(
+            (data[lo:hi], cols[lo:hi], indptr), shape=(li, lj))
+    return posts
+
+
 def _row_topk(planes: torch.Tensor, k: int):
     """Top k entries of every row, ties to the lowest column (stable
     descending sort: the JAX package's `lax.top_k` order)."""
@@ -457,19 +499,18 @@ class DevicePosteriorTensor:
                 torch.tensor([j for _, j in self.pairs], device=dev))
 
     def _extract(self, planes) -> dict:
-        """Top-k extract the (pairs, Lp, Lp) planes to host CSRs (the
-        only device -> host crossing of the consistency path)."""
+        """Top-k extract the (pairs, L, L) planes to host CSRs (the
+        only device -> host crossing of the consistency path): each
+        pair's `topk_to_csr`, with the entries kept and ordered by
+        column within a row on the device, so that only they cross."""
         with STATS.sub("topk_copy"):
             vals, idx = _row_topk(planes, EXTRACT_TOPK)
-            vals = vals.cpu().numpy()
-            idx = idx.cpu().numpy()
-        posts = {}
+            counts, data, cols = _kept_entries(vals, idx, self.pairs,
+                                               self.seq_lens)
         with STATS.sub("csr"):
-            for k, (i, j) in enumerate(self.pairs):
-                li, lj = self.seq_lens[i], self.seq_lens[j]
-                posts[(i, j)] = topk_to_csr(vals[k], idx[k], li, lj)
-            STATS.count("csr_entries",
-                        sum(p.nnz for p in posts.values()))
+            posts = _entries_to_csrs(counts, data, cols, self.pairs,
+                                     self.seq_lens)
+            STATS.count("csr_entries", len(data))
         return posts
 
     def extract_csrs(self) -> dict:
@@ -492,7 +533,7 @@ class DevicePosteriorTensor:
         blocks relaxed (the counter `gemm_flops`)."""
         from mlprobs_tpu_torch.align import consistency as cons
 
-        n, _, lp, _ = self.S.shape
+        n = self.S.shape[0]
         dev = self.S.device
         with STATS.sub("relax"):
             sc, zs, w = cons.dense_relax_coeffs(
@@ -505,7 +546,10 @@ class DevicePosteriorTensor:
                 planes = S[ii, jj]
                 del S
             else:
-                packing = cons.Packing(self.seq_lens, self.pairs, lp, dev)
+                # planes as wide as the longest sequence: past it they
+                # are zero, and the top-k of a row is the same
+                packing = cons.Packing(self.seq_lens, self.pairs,
+                                       max(self.seq_lens), dev)
                 R = cons.relax_packed_rounds(packing.pack(self.S), packing,
                                              sc, zs, w, reps=reps,
                                              final_cutoff=final_cutoff)

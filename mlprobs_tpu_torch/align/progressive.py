@@ -37,34 +37,75 @@ class PostPool:
     """Pooled COO of all ordered pair posteriors.
 
     Built once per posts dict so that the host profile builder can
-    scatter every inter-group pair without per-pair Python/scipy work;
-    `index[(la, lb)]` -> (start, len) into the shared (r, c, v) pools
-    (both orientations stored, each sorted by row, as the host scatter
-    requires)."""
+    scatter every inter-group pair without per-pair Python/scipy work:
+    `start[la, lb]`, `len[la, lb]` (M x M over the labels; start -1: no
+    pair) place each ordered pair in the shared (r, c, v) pools (both
+    orientations stored, each sorted by row, as the host scatter
+    requires).  The pairs are the blocks of one block-diagonal CSR: the
+    pools hold its entries in storage order, then those of its `tocsc`
+    (each pair's transpose, by column, ties in storage order)."""
 
     @STATS.sub("pool")
     def __init__(self, posts: dict[tuple[int, int], sp.csr_matrix]):
-        rs, cs, vs = [], [], []
-        self.index: dict[tuple[int, int], tuple[int, int]] = {}
-        off = 0
-        for (i, j), s in posts.items():
-            coo = s.tocsr().tocoo()          # row-major: sorted by row
-            r = coo.row.astype(np.int32)
-            c = coo.col.astype(np.int32)
-            v = coo.data.astype(np.float32)
-            t = np.argsort(c, kind="stable")
-            rs += [r, c[t]]
-            cs += [c, r[t]]
-            vs += [v, v[t]]
-            self.index[(i, j)] = (off, len(v))
-            off += len(v)
-            self.index[(j, i)] = (off, len(v))
-            off += len(v)
-        z32 = np.zeros(0, np.int32)
-        self.r = np.concatenate(rs) if rs else z32
-        self.c = np.concatenate(cs) if cs else z32
-        self.v = (np.concatenate(vs) if vs
-                  else np.zeros(0, np.float32))
+        mats = [s.tocsr() for s in posts.values()]
+        shapes = np.array([m.shape for m in mats], np.int64).reshape(-1, 2)
+        ptrs = (np.concatenate([m.indptr for m in mats]).astype(np.int64)
+                if mats else np.zeros(0, np.int64))
+        last = np.cumsum(shapes[:, 0] + 1) - 1     # each pair's indptr end
+        nnz = ptrs[last]
+        start = np.zeros(len(mats) + 1, np.int64)
+        np.cumsum(nnz, out=start[1:])
+        total = int(start[-1])
+        ij = np.array(list(posts), np.int64).reshape(-1, 2)
+        labels = int(ij.max()) + 1 if len(ij) else 0
+        self.start = np.full((labels, labels), -1, np.int64)
+        self.len = np.zeros((labels, labels), np.int64)
+        self.start[ij[:, 0], ij[:, 1]] = start[:-1]
+        self.start[ij[:, 1], ij[:, 0]] = total + start[:-1]
+        self.len[ij[:, 0], ij[:, 1]] = nnz
+        self.len[ij[:, 1], ij[:, 0]] = nnz
+        if not total:
+            self.r = self.c = np.zeros(0, np.int32)
+            self.v = np.zeros(0, np.float32)
+            return
+        # each pair is a block of one block-diagonal CSR: its rows and
+        # columns, and their positions within the pair
+        nr, nc = (int(x) for x in shapes.sum(0))
+        c0 = np.zeros(len(mats), np.int32)
+        np.cumsum(shapes[:-1, 1], out=c0[1:])
+        row_pos = _positions(shapes[:, 0], nr)
+        col_pos = _positions(shapes[:, 1], nc)
+        per_row = np.delete(np.diff(ptrs), last[:-1])
+        ptr = np.zeros(nr + 1, np.int64)
+        np.cumsum(per_row, out=ptr[1:])
+        c = np.concatenate([m.indices for m in mats]).astype(np.int32)
+        v = np.concatenate([m.data for m in mats]).astype(np.float32)
+        c += c0.repeat(nnz)
+        t = sp.csr_matrix((v, c, ptr), shape=(nr, nc)).tocsc()
+        self.r = np.concatenate([row_pos.repeat(per_row),
+                                 col_pos.repeat(np.diff(t.indptr))])
+        self.c = np.concatenate([col_pos[c], row_pos[t.indices]])
+        self.v = np.concatenate([v, t.data])
+
+    def lookup(self, la: np.ndarray, lb: np.ndarray):
+        """The pairs of labels la x lb that the pool holds: a (len(la),
+        len(lb)) mask, and their starts and lengths in row-major
+        order."""
+        m = len(self.start)
+        held = (la < m)[:, None] & (lb < m)[None, :]
+        ia, ib = np.where(la < m, la, 0), np.where(lb < m, lb, 0)
+        if m:
+            held &= self.start[ia][:, ib] >= 0
+        a, b = np.nonzero(held)
+        return held, self.start[ia[a], ib[b]], self.len[ia[a], ib[b]]
+
+
+def _positions(sizes: np.ndarray, total: int) -> np.ndarray:
+    """0, 1, .., sizes[0] - 1, 0, 1, .., sizes[1] - 1, ... (int32)."""
+    at = np.arange(total, dtype=np.int32)
+    first = np.zeros(len(sizes), np.int32)
+    np.cumsum(sizes[:-1], out=first[1:])
+    return at - first.repeat(sizes)
 
 
 def build_profile_posterior(
@@ -100,35 +141,21 @@ def _scatter(group1: MSA, group2: MSA, weights, cutoff_sub: float,
     m1_off[1:] = np.cumsum([len(m) for m in maps1])
     m2_off = np.zeros(len(maps2) + 1, np.int64)
     m2_off[1:] = np.cumsum([len(m) for m in maps2])
-    n1, n2 = group1.num_seqs, group2.num_seqs
-    la = [int(x) for x in group1.labels]
-    lb = [int(x) for x in group2.labels]
+    la = np.asarray(group1.labels, np.int64)
+    lb = np.asarray(group2.labels, np.int64)
+    held, starts, lens = pool.lookup(la, lb)
+    a_idx, b_idx = (x.astype(np.int32) for x in np.nonzero(held))
     if weights is not None:
-        total_w = sum(
-            float(weights[a]) * float(weights[b])
-            for a in la for b in lb
-        ) or 1.0
-    starts = np.empty(n1 * n2, np.int64)
-    lens = np.empty(n1 * n2, np.int64)
-    a_idx = np.empty(n1 * n2, np.int32)
-    b_idx = np.empty(n1 * n2, np.int32)
-    wts = np.empty(n1 * n2, np.float64)
-    k = 0
-    for a in range(n1):
-        for b in range(n2):
-            ent = pool.index.get((la[a], lb[b]))
-            if ent is None:
-                continue
-            starts[k], lens[k] = ent
-            a_idx[k], b_idx[k] = a, b
-            wts[k] = (
-                float(weights[la[a]]) * float(weights[lb[b]]) / total_w
-                if weights is not None else 1.0
-            )
-            k += 1
-    STATS.count("scatter_entries", int(lens[:k].sum()))
+        w = np.asarray(weights, np.float64)
+        prod = np.multiply.outer(w[la], w[lb])
+        # Python's float sum, over the pairs in row-major order
+        total_w = sum(prod.ravel().tolist()) or 1.0
+        wts = prod[held] / total_w
+    else:
+        wts = np.ones(len(starts), np.float64)
+    STATS.count("scatter_entries", int(lens.sum()))
     return host.profile_posterior(
-        l1, l2, starts[:k], lens[:k], a_idx[:k], b_idx[:k], wts[:k],
+        l1, l2, starts, lens, a_idx, b_idx, wts,
         pool.r, pool.c, pool.v,
         np.concatenate(maps1) if maps1 else np.zeros(0, np.int32),
         m1_off,

@@ -102,6 +102,9 @@ int mwt_traceback(const int8_t* dirs, int stride, int lx, int ly,
 // thread count or the schedule.  A pair's entries in a band are one
 // contiguous run (the rows are sorted and the maps ascend), found by
 // binary search, so the work stays O(entries + bands x pairs x log).
+// A plane of fewer than kMinParallelBands bands (a realigned block's
+// short profiles) runs on the calling thread: a team for one or two
+// bands costs more than it splits, and waits on every busy core.
 void profile_posterior(
     int l1, int l2,
     int npairs,
@@ -119,13 +122,14 @@ void profile_posterior(
     float* out
 ) {
     constexpr int kBand = 8;
+    constexpr int kMinParallelBands = 4;
     const size_t plane = (size_t)l1 * l2;
     const bool with_sub = cutoff_sub != 0.0;
     std::vector<double> acc(plane, 0.0);
     std::vector<double> sub(with_sub ? plane : 0, 0.0);
     const int nbands = (l1 + kBand - 1) / kBand;
 #ifdef _OPENMP
-#pragma omp parallel for schedule(dynamic)
+#pragma omp parallel for schedule(dynamic) if (nbands >= kMinParallelBands)
 #endif
     for (int band = 0; band < nbands; ++band) {
         const int lo = band * kBand, hi = std::min(l1, lo + kBand);

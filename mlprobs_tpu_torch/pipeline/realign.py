@@ -42,7 +42,10 @@ def realign_block(block_msa: MSA, device="cuda", report=None) -> MSA:
     dropped before realignment and re-appended (as full-gap rows of the
     new width) afterwards, preserving header-sorted order at the end.
     `report` (a PipelineReport) counts the blocks realigned and accepted
-    and records every failure the block is kept for.
+    and records every failure the block is kept for.  A block that goes
+    through the realigner is the span `realign.block`, with the counters
+    `blocks`, `blocks_accepted` and `block_columns` (its width in the
+    base MSA).
     """
     keep_rows = []
     gap_headers = []
@@ -61,22 +64,28 @@ def realign_block(block_msa: MSA, device="cuda", report=None) -> MSA:
     if len(records) == 1:
         new = MSA.from_records(records)
     else:
-        if report is not None:
-            report.blocks_realigned += 1
-        try:
-            new = align_family(records, config="quickprobs", device=device)
-        except BLOCK_RECOVERABLE as e:
-            STATS.count("pipeline.block_errors")
+        with STATS.span("realign.block"):
+            STATS.count("blocks")
+            STATS.count("block_columns", block_msa.length)
             if report is not None:
-                report.block_errors.append(f"{type(e).__name__}: {e}"[:240])
-            return block_msa
-        new = new.sort_by_header()
-        # acceptance: keep realignment only if avg column score does not
-        # drop (do_realign.py:64-70)
-        if avg_col_score(block_msa.rows) > avg_col_score(new.rows):
-            return block_msa
-        if report is not None:
-            report.blocks_accepted += 1
+                report.blocks_realigned += 1
+            try:
+                new = align_family(records, config="quickprobs",
+                                   device=device)
+            except BLOCK_RECOVERABLE as e:
+                STATS.count("pipeline.block_errors")
+                if report is not None:
+                    report.block_errors.append(
+                        f"{type(e).__name__}: {e}"[:240])
+                return block_msa
+            new = new.sort_by_header()
+            # acceptance: keep realignment only if avg column score does
+            # not drop (do_realign.py:64-70)
+            if avg_col_score(block_msa.rows) > avg_col_score(new.rows):
+                return block_msa
+            STATS.count("blocks_accepted")
+            if report is not None:
+                report.blocks_accepted += 1
     # re-append all-gap rows padded to the new width, header-sorted
     width = new.length
     headers = list(new.headers) + gap_headers
@@ -96,6 +105,7 @@ def realign_and_combine(
 
     `base` must be header-sorted.  If `do_realign` is False the realign
     blocks are kept as-is (factor <= 0 RCR case falls back upstream).
+    The stitching is the span `realign.combine`.
     """
     n = base.num_seqs
     headers = list(base.headers)
@@ -116,5 +126,6 @@ def realign_and_combine(
                     labels=base.labels.copy(),
                 )
         parts.append(piece.rows)
-    rows = np.concatenate(parts, axis=1) if parts else base.rows
-    return MSA(headers=headers, rows=rows, labels=base.labels.copy())
+    with STATS.span("realign.combine"):
+        rows = np.concatenate(parts, axis=1) if parts else base.rows
+        return MSA(headers=headers, rows=rows, labels=base.labels.copy())

@@ -53,12 +53,12 @@ def _gapped_group(rng, labels, length, lens):
     return rows
 
 
-def _scatter_inputs(seed=0):
-    """Two gapped groups over 22 labels and random sparse posteriors of
-    every pair, many pairs landing in each profile cell."""
+def _scatter_inputs(seed=0, shape=(12, 10, 170, 150, 90, 140)):
+    """Two gapped groups over n1 + n2 labels (22) and random sparse
+    posteriors of every pair, many pairs landing in each profile cell."""
     rng = np.random.default_rng(seed)
-    n1, n2, l1, l2 = 12, 10, 170, 150
-    lens = rng.integers(90, 140, n1 + n2)
+    n1, n2, l1, l2, lo, hi = shape
+    lens = rng.integers(lo, hi, n1 + n2)
     lab1 = rng.permutation(n1 + n2)[:n1]
     lab2 = np.setdiff1d(np.arange(n1 + n2), lab1)
     r1 = _gapped_group(rng, lab1, l1, [lens[a] for a in lab1])
@@ -138,6 +138,29 @@ def test_scatter_bit_equal_to_numpy_order(threads, tmp_path):
         assert np.array_equal(g, want[3])
 
 
+# a realigned block's short profiles: fewer bands of rows than
+# csrc/host.cpp's kMinParallelBands, so the scatter runs on the calling
+# thread whatever OMP_NUM_THREADS says
+SHORT = (40, 51, 13, 11, 3, 9)
+
+
+@pytest.mark.parametrize("threads", (1, 8))
+def test_short_profile_scatter_bit_equal_to_numpy_order(threads,
+                                                        tmp_path):
+    g1, g2, posts, weights = _scatter_inputs(seed=4, shape=SHORT)
+    j1, j2 = JMSA(*g1), JMSA(*g2)
+    want = [jprog.build_profile_posterior(
+        j1, j2, posts, weights if weighted else None, cutoff_sub=cut,
+        pool=None) for weighted, cut in CASES]
+    got = _run_port(_PORT_SCATTER, (g1, g2, posts, weights, CASES),
+                    threads, tmp_path)
+    for (weighted, cut), g, w in zip(CASES, got, want):
+        assert g.dtype == w.dtype == np.float32
+        assert np.array_equal(g, w), (threads, weighted, cut)
+    for g in got[len(CASES):]:
+        assert np.array_equal(g, want[3])
+
+
 def test_pool_entries_sorted_by_row():
     """The host scatter finds a band's entries by binary search over each
     pair's rows, so PostPool must store both orientations sorted."""
@@ -145,7 +168,8 @@ def test_pool_entries_sorted_by_row():
 
     _, _, posts, _ = _scatter_inputs(seed=1)
     pool = PostPool(posts)
-    for (a, b), (start, n) in pool.index.items():
+    for a, b in np.argwhere(pool.start >= 0):
+        start, n = pool.start[a, b], pool.len[a, b]
         r = pool.r[start:start + n]
         assert np.all(np.diff(r) >= 0), (a, b)
         lo, hi = min(a, b), max(a, b)
